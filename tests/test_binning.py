@@ -293,41 +293,54 @@ def test_entry_slice_matches_full_capacity_pixels():
     assert int(tight.overflow) > 0
 
 
-def test_broad_cap_growth_clamps_at_smem_ceiling():
-    """Repeated bin overflows quadruple broad_cap only up to the SMEM
-    ceiling the Pallas kernels can actually hold ([NUM_CHANNELS, B] broad
-    channels live in SMEM); past it the overflow keeps being reported.
-    Regression: growth to 1<<16 made every config5 frame fail Mosaic
-    compilation with an opaque SMEM allocation error."""
+def test_broad_list_grows_past_old_ceiling_and_kernel_resolves_it():
+    """The broad side list stays in device memory, so repeated bin
+    overflows quadruple broad_cap with no ceiling, and the visibility
+    kernel resolves a broad table longer than 4096 rows (the bound an
+    on-chip copy of the list used to impose) exactly like the XLA path."""
     import tyleri_tpu as ty
-    from tyleri_tpu.ops.raster_pallas import BROAD_CAP_SMEM_MAX
+    from tyleri_tpu.ops.raster_pallas import rasterize_visibility_pallas
+    from tyleri_tpu.ops.visibility import rasterize_visibility
+    from tyleri_tpu.pipeline.state import CompareOp, DepthState
     from tyleri_tpu.window.swapchain import ImageViewSwapchain
 
     dev = ty.RenderDeviceBuilder().build()
     rf = ty.ForwardRenderingFunction(dev, ImageViewSwapchain((64, 64)))
-    for _ in range(10):
+    b0 = rf.plan.raster.broad_cap
+    for _ in range(5):
         rf.note_overflow(123, 0, 0, 0, bin_demand=0)
-    assert rf.plan.raster.broad_cap == BROAD_CAP_SMEM_MAX
+    assert rf.plan.raster.broad_cap == b0 * 4 ** 5 > 4096
 
-    # and the kernel itself refuses a table past the ceiling, loudly
-    import pytest
-
-    from tyleri_tpu.ops.raster_pallas import rasterize_visibility_pallas
-    from tyleri_tpu.pipeline.state import CompareOp, DepthState
-
-    su, grid_w, grid_h = make_setup(np.random.default_rng(0), T=16,
-                                    grid_w=1, grid_h=4, tile=16)
-    binned = bin_triangles(su, grid_w=grid_w, grid_h=grid_h, entry_cap=128,
-                           max_tiles_per_tri=4,
-                           broad_cap=BROAD_CAP_SMEM_MAX + 1, spill_cap=128)
+    rng = np.random.default_rng(0)
+    T = 48
+    clip = np.zeros((T, 3, 4), np.float32)
+    clip[..., :2] = rng.uniform(-1.2, 1.2, (T, 3, 2))   # mostly broad
+    clip[..., 2] = rng.uniform(0.1, 0.9, (T, 1))
+    clip[..., 3] = 1.0
+    su = setup_triangles(
+        jnp.asarray(clip), jnp.zeros((T, 3, 2), jnp.float32),
+        jnp.zeros((T,), jnp.int32), jnp.ones((T,), bool),
+        jnp.asarray([0.0, 0.0, 32.0, 32.0, 0.0, 1.0], jnp.float32),
+        jnp.asarray([0, 0, 32, 32], jnp.int32),
+        tile_w=16, tile_h=16, grid_w=2, grid_h=2,
+        order=jnp.arange(T, dtype=jnp.float32))
+    binned = bin_triangles(su, grid_w=2, grid_h=2, entry_cap=256,
+                           max_tiles_per_tri=2, broad_cap=4097,
+                           spill_cap=128)
+    assert int(binned.num_broad) > 0 and int(binned.overflow) == 0
     ds = DepthState(test_enable=True, write_enable=True,
                     compare_op=CompareOp.LESS_OR_EQUAL)
-    with pytest.raises(ValueError, match="SMEM"):
-        rasterize_visibility_pallas(
-            binned, jnp.ones((64, 16), jnp.float32),
-            jnp.asarray([0, 0, 16, 64], jnp.int32),
-            fb_w=16, fb_h=64, tile_w=16, tile_h=16, grid_w=1, grid_h=4,
-            chunk=128, depth_state=ds, interpret=True)
+    geom = dict(fb_w=32, fb_h=32, tile_w=16, tile_h=16, grid_w=2, grid_h=2,
+                chunk=32, depth_state=ds)
+    depth = jnp.ones((32, 32), jnp.float32)
+    scissor = jnp.asarray([0, 0, 32, 32], jnp.int32)
+    vk, _ = rasterize_visibility_pallas(binned, depth, scissor,
+                                        interpret=True, **geom)
+    vx, _ = rasterize_visibility(binned, depth, scissor, cap_per_tile=256,
+                                 **geom)
+    assert (np.asarray(vx.owner) >= 256).any()   # broad winners exist
+    np.testing.assert_array_equal(np.asarray(vk.owner), np.asarray(vx.owner))
+    np.testing.assert_array_equal(np.asarray(vk.depth), np.asarray(vx.depth))
 
 
 def test_entry_fit_stage2_tighten():

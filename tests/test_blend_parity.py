@@ -1,6 +1,6 @@
 """Blend-parity "auto" policy (VERDICT r4 item 3): the reference's mesh
 pipeline always blends in submission order (ref common_pipeline.rs:117-131);
-the policy engages the two-layer depth peel by scene scale on the Pallas
+the policy engages the two-layer depth peel by scene scale on the kernel
 path, pins via "peel2"/"fast"/"exact", and reports the deviation through the
 messenger exactly when the fast path ships for a blending scene.
 """
@@ -20,10 +20,10 @@ RES = (64, 64)
 
 
 def _pallas_capable(rf):
-    """Force the Pallas envelope (interpret mode off-TPU) so the policy's
-    TPU behavior is testable on the CPU suite."""
+    """Force the visibility kernel (interpret mode on the CPU) so the
+    policy's GPU behavior is testable on the CPU suite."""
     rf.plan = dataclasses.replace(rf.plan, raster=dataclasses.replace(
-        rf.plan.raster, pallas=True, tile_w=128, tile_h=8, chunk=128))
+        rf.plan.raster, pallas=True))
 
 
 def _scene(dev, n_instances=6):
@@ -71,7 +71,7 @@ def test_auto_keeps_fast_path_above_threshold_and_warns_once(monkeypatch):
 
 
 def test_auto_stays_fast_on_xla_path_and_warns():
-    """On the XLA path (CPU default; unsupported depth states on TPU) the
+    """On the XLA path (CPU default; unsupported depth states on a GPU) the
     peel2 flag would be inert — the plan stays stable and the deviation is
     reported instead."""
     dev = ty.RenderDeviceBuilder().validation_level(
@@ -122,7 +122,7 @@ def test_peel2_composes_with_lit_single_layer():
     """peel2 + lit shading: on geometry with no overlap, layer 2 is empty
     everywhere and the peel2 frame must match the single-layer lit frame
     pixel-for-pixel (guards suzanne-class lit scenes, which the auto
-    policy now runs with peel2 on TPU)."""
+    policy runs with peel2 on a GPU)."""
     res = (96, 96)
     dev = ty.RenderDeviceBuilder().build()
     rig = scenelib.config3_suzanne(dev, resolution=res)
@@ -132,8 +132,7 @@ def test_peel2_composes_with_lit_single_layer():
                                          blend_parity="peel2" if peel2
                                          else "fast")
         rf.plan = dataclasses.replace(rf.plan, raster=dataclasses.replace(
-            rf.plan.raster, pallas=True, tile_w=128, tile_h=8, chunk=128,
-            peel2=peel2))
+            rf.plan.raster, pallas=True, peel2=peel2))
         scene = RenderScene()
         rig.fill(scene, 0.3)
         arrays = rf.build_frame_inputs(dev, scene.render_resources, 1.0, res)

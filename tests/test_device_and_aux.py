@@ -111,11 +111,15 @@ def test_cap_growth_policy():
     assert _next_pow2(5, 4) == 8
 
 
-def test_pipeline_cache_bytes_round_trip(tmp_path):
+def test_pipeline_cache_bytes_round_trip(tmp_path, monkeypatch):
     """The reference seeds a VkPipelineCache from bytes and exports it with
-    get_pipeline_cache_data (builders.rs:321-331); the TPU analog must round
-    trip actual cache CONTENTS through bytes, not just share a directory."""
+    get_pipeline_cache_data (builders.rs:321-331); the analog must round
+    trip actual cache CONTENTS through bytes, not just share a directory.
+    A seed unpacks into JAX_COMPILATION_CACHE_DIR when it is set."""
     from tyleri_tpu.device.pipeline_cache import PipelineCache
+
+    env_dir = tmp_path / "env_cache"
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(env_dir))
 
     src_dir = tmp_path / "cache_a"
     src_dir.mkdir()
@@ -126,9 +130,9 @@ def test_pipeline_cache_bytes_round_trip(tmp_path):
     blob = src.get_data()
     assert isinstance(blob, bytes) and len(blob) > 0
 
-    seeded = PipelineCache(seed=blob)  # fresh directory, contents restored
+    seeded = PipelineCache(seed=blob)  # the environment's directory
     assert seeded.enabled
-    assert seeded.directory != str(src_dir)
+    assert seeded.directory == str(env_dir)
     import os
 
     with open(os.path.join(seeded.directory, "jit__frame-abc123"), "rb") as f:

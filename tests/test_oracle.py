@@ -1,7 +1,7 @@
 """Self-consistency tests for the numpy oracle rasterizer (Vulkan rules).
 
 These pin down the fill convention, depth semantics, and sampler behavior
-that the TPU kernels are later tested against.
+that the JAX kernels are tested against.
 """
 
 import numpy as np

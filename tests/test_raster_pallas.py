@@ -1,5 +1,6 @@
-"""Pallas visibility kernel vs the XLA reference implementation
-(interpret mode on CPU; the real compiled path runs on TPU in bench)."""
+"""Visibility kernel (Pallas, Triton route) vs the XLA reference
+implementation, in interpret mode on the CPU; chip_smoke.py compares the
+compiled kernel on a GPU."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -15,7 +16,7 @@ from tyleri_tpu.pipeline.state import (
 from tyleri_tpu.rendering import passes
 from tyleri_tpu.utils.math3d import Rect2D, Viewport
 
-FB_W, FB_H = 128, 32  # one column of (8, 128) tiles, 4 rows
+FB_W, FB_H = 128, 32
 
 FLAT = PipelineState(
     blend=BlendState(enable=False),
@@ -39,12 +40,10 @@ def random_scene(rng, T=24, grid=16):
 
 def run(clip, uv, pallas, plan_kw=None):
     T = clip.shape[0]
-    kw = dict(entry_cap=1024, cap_per_tile=512, chunk=128)
+    kw = dict(entry_cap=1024, cap_per_tile=512, chunk=128,
+              tile_w=128, tile_h=8)
     kw.update(plan_kw or {})
-    plan = passes.RasterPlan(
-        fb_w=FB_W, fb_h=FB_H, tile_w=128, tile_h=8,
-        pallas=pallas, **kw,
-    )
+    plan = passes.RasterPlan(fb_w=FB_W, fb_h=FB_H, pallas=pallas, **kw)
     texels = jnp.ones((4, 16), jnp.float32)
     meta = (jnp.zeros((1,), jnp.int32), jnp.full((1,), 2, jnp.int32),
             jnp.full((1,), 2, jnp.int32))
@@ -61,11 +60,14 @@ def run(clip, uv, pallas, plan_kw=None):
     return np.asarray(color), np.asarray(depth)
 
 
-def test_pallas_matches_xla_visibility():
+@pytest.mark.parametrize("tile", [(16, 16), (32, 8), (8, 32)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+def test_pallas_matches_xla_visibility(tile):
     rng = np.random.default_rng(21)
     clip, uv = random_scene(rng)
-    c_ref, d_ref = run(clip, uv, pallas=False)
-    c_pal, d_pal = run(clip, uv, pallas=True)
+    kw = dict(tile_w=tile[0], tile_h=tile[1], chunk=8)
+    c_ref, d_ref = run(clip, uv, pallas=False, plan_kw=kw)
+    c_pal, d_pal = run(clip, uv, pallas=True, plan_kw=kw)
     np.testing.assert_array_equal(d_pal, d_ref)
     np.testing.assert_allclose(c_pal, c_ref, atol=1e-6)
 
@@ -141,9 +143,11 @@ def test_pallas_scissor_and_empty():
 
 
 def test_pallas_flag_validation():
-    plan = passes.RasterPlan(fb_w=64, fb_h=64, tile_w=8, tile_h=8, pallas=True)
+    """pallas=True outside the kernel's envelope (a tile side that is not
+    a power of two) is refused, not silently routed elsewhere."""
+    plan = passes.RasterPlan(fb_w=64, fb_h=64, tile_w=12, tile_h=8, pallas=True)
     with pytest.raises(ValueError):
-        passes._use_pallas(plan, FLAT)
+        passes.visibility_backend(plan, FLAT)
 
 
 def test_pallas_less_compare_first_draw_wins_ties():
@@ -263,61 +267,67 @@ def test_pallas_segment_pressing_entry_cap():
 def test_early_exit_skips_occluded_entries():
     """The front-to-back early exit must actually fire: a near full-cover
     quad (sorted first by CH_ZMIN) occludes hundreds of far triangles in
-    the same tile, so the kernel should visit ~one chunk, not the whole
-    segment (guards the exit semantics without TPU timing)."""
-    from tyleri_tpu.ops.setup import setup_triangles
+    the same tile.  The far entries' planes are then overwritten, behind
+    the walk's back, with a plane at z=0 that would win every pixel: if the
+    walk visited them the output would change, so an unchanged frame shows
+    they were skipped (chunk 32: the quad's chunk is the only one walked)."""
+    from tyleri_tpu.ops import setup as S
     from tyleri_tpu.ops.binning import bin_triangles
     from tyleri_tpu.ops.raster_pallas import rasterize_visibility_pallas
+    from tyleri_tpu.ops.setup import setup_triangles
     from tyleri_tpu.pipeline.state import MESH_PIPELINE_STATE
 
     rng = np.random.default_rng(3)
-    n_far = 400
-    far_xy = rng.uniform(-1, 1, (n_far, 3, 2)) * 0.9
-    near = [[[-2, -2], [4, -2], [-2, 4]], [[4, 4], [-2, 4], [4, -2]]]
-    xy = np.concatenate([np.array(near, np.float64), far_xy], 0)
-    T = xy.shape[0]
-    z = np.full((T, 3), 0.9)
-    z[0] = z[1] = 0.1
-    clip = np.zeros((T, 3, 4), np.float32)
-    clip[..., 0] = xy[..., 0]
-    clip[..., 1] = xy[..., 1]
-    clip[..., 2] = z
-    clip[..., 3] = 1.0
-    uv = rng.random((T, 3, 2)).astype(np.float32)
+    clip, uv = occlusion_scene(rng, n_far=400)
+    T = clip.shape[0]
     su = setup_triangles(
         jnp.asarray(clip), jnp.asarray(uv), jnp.zeros((T,), jnp.int32),
         jnp.ones((T,), bool),
-        jnp.array([0, 0, 128, 16, 0, 1], jnp.float32),
-        jnp.array([0, 0, 128, 16], jnp.int32),
-        tile_w=128, tile_h=16, grid_w=1, grid_h=1,
+        jnp.array([0, 0, 16, 16, 0, 1], jnp.float32),
+        jnp.array([0, 0, 16, 16], jnp.int32),
+        tile_w=16, tile_h=16, grid_w=1, grid_h=1,
         order=jnp.arange(T, dtype=jnp.float32))
     b = bin_triangles(su, grid_w=1, grid_h=1, entry_cap=1024,
                       max_tiles_per_tri=4, broad_cap=8, spill_cap=512)
     assert int(b.num_entries) == T
-    _, _, nvis = rasterize_visibility_pallas(
-        b, jnp.ones((16, 128), jnp.float32),
-        jnp.array([0, 0, 128, 16], jnp.int32),
-        fb_w=128, fb_h=16, tile_w=128, tile_h=16, grid_w=1, grid_h=1,
-        chunk=128, depth_state=MESH_PIPELINE_STATE.depth, interpret=True,
-        debug_counts=True)
-    visits = int(np.asarray(nvis).sum())
-    # the quad fills the tile in chunk 1; chunks 2+ must be skipped
-    assert visits <= 256, f"early exit dead: visited {visits} of {T}"
+
+    def resolve(binned):
+        vis, _ = rasterize_visibility_pallas(
+            binned, jnp.ones((16, 16), jnp.float32),
+            jnp.array([0, 0, 16, 16], jnp.int32),
+            fb_w=16, fb_h=16, tile_w=16, tile_h=16, grid_w=1, grid_h=1,
+            chunk=32, depth_state=MESH_PIPELINE_STATE.depth, interpret=True)
+        return np.asarray(vis.depth), np.asarray(vis.owner)
+
+    d0, o0 = resolve(b)
+    assert (o0 >= 0).all() and np.allclose(d0, 0.1, atol=1e-4)
+    ch = np.asarray(b.entry_channels).copy()
+    far = np.arange(64, T)   # entries past the first two chunks
+    ch[far, S.CH_E0:S.CH_E0 + 3] = [0, 0, 1]     # e0 = e1 = 1 everywhere
+    ch[far, S.CH_E1:S.CH_E1 + 3] = [0, 0, 1]
+    ch[far, S.CH_TWOA] = 3.0                      # e2 = 1
+    ch[far, S.CH_Z:S.CH_Z + 3] = 0.0              # z = 0: beats the quad
+    d1, o1 = resolve(b._replace(entry_channels=jnp.asarray(ch)))
+    np.testing.assert_array_equal(d1, d0)
+    np.testing.assert_array_equal(o1, o0)
+    # teeth: with the exit bound defeated (every z-min 0) the poisoned
+    # entries are walked and win
+    ch[:, S.CH_ZMIN] = 0.0
+    d2, _ = resolve(b._replace(entry_channels=jnp.asarray(ch)))
+    assert (d2 == 0.0).all()
 
 
-
-@pytest.mark.parametrize("tpp", [2, 4])
-def test_pallas_tiles_per_prog_matches_xla(tpp):
-    """plan.tiles_per_prog: a grid program resolving several vertically
-    adjacent tiles must render identically to the XLA path."""
-    rng = np.random.default_rng(93)
-    clip, uv = random_scene(rng, T=64)
-    c_ref, d_ref = run(clip, uv, pallas=False)
-    c_mt, d_mt = run(clip, uv, pallas=True,
-                     plan_kw=dict(tiles_per_prog=tpp))
-    np.testing.assert_array_equal(d_mt, d_ref)
-    np.testing.assert_allclose(c_mt, c_ref, atol=1e-6)
-
+@pytest.mark.parametrize("chunk", [4, 32])
+def test_kernel_occlusion_scene_matches_xla(chunk):
+    """Scenes where the early exit engages, at two exit granularities:
+    pixel-equal to the XLA path."""
+    rng = np.random.default_rng(94)
+    kw = dict(tile_w=16, tile_h=16, chunk=chunk)
+    for clip, uv in (random_scene(rng, T=64), occlusion_scene(rng)):
+        c_ref, d_ref = run(clip, uv, pallas=False, plan_kw=kw)
+        c_k, d_k = run(clip, uv, pallas=True, plan_kw=kw)
+        np.testing.assert_array_equal(d_k, d_ref)
+        np.testing.assert_allclose(c_k, c_ref, atol=1e-6)
 
 
 def test_pallas_broad_and_cap_pressure():
@@ -346,8 +356,7 @@ def test_pallas_broad_and_cap_pressure():
 
 def occlusion_scene(rng, n_far=96):
     """A near full-cover quad (first in z-order) over many far triangles:
-    the front-to-back exit threshold engages, so the exit-variant flags
-    (lag2 / while) take their non-trivial paths."""
+    the front-to-back exit threshold engages."""
     near = [[[-2, -2], [4, -2], [-2, 4]], [[4, 4], [-2, 4], [4, -2]]]
     far_xy = rng.uniform(-1, 1, (n_far, 3, 2)) * 0.9
     xy = np.concatenate([np.array(near, np.float64), far_xy], 0)
@@ -361,24 +370,6 @@ def occlusion_scene(rng, n_far=96):
     clip[..., 3] = 1.0
     uv = rng.random((T, 3, 2)).astype(np.float32)
     return clip, uv
-
-
-@pytest.mark.parametrize("kw", [dict(exit_lag2=True),
-                                dict(exit_while=True),
-                                dict(noexit=True)])
-def test_pallas_exit_variants_match_xla(kw):
-    """plan.exit_lag2 (threshold published one chunk late) and
-    plan.exit_while (while-loop chunk structure) are pure scheduling
-    changes: pixel-equal to the XLA path on scenes where the early exit
-    both does and does not engage."""
-    rng = np.random.default_rng(94)
-    for clip, uv in (random_scene(rng, T=64), occlusion_scene(rng)):
-        c_ref, d_ref = run(clip, uv, pallas=False)
-        c_v, d_v = run(clip, uv, pallas=True, plan_kw=kw)
-        np.testing.assert_array_equal(d_v, d_ref)
-        np.testing.assert_allclose(c_v, c_ref, atol=1e-6)
-
-
 
 
 def _stack_scene(n_layers=3):
@@ -537,11 +528,11 @@ def test_pallas_peel2_layer2_is_the_prior_record():
 
 
 def test_pallas_peel2_exit_bound_is_sound():
-    """The peel-aware early exit thresholds on layer-2 depth (zi=7): build
-    a scene where it ENGAGES (two full-cover quads drawn last, so z2 drops
+    """The peel-aware early exit thresholds on layer-2 depth: build a
+    scene where it ENGAGES (two full-cover quads drawn last, so z2 drops
     to the second quad's depth and the many far triangles behind it get
-    skipped) and require the exit / lag2 / noexit variants pixel-equal —
-    the bound must never skip an entry that could still alter layer 2."""
+    skipped) and require every exit granularity pixel-equal — the bound
+    must never skip an entry that could still alter layer 2."""
     rng = np.random.default_rng(31)
     far_xy = rng.uniform(-1, 1, (96, 3, 2)) * 0.9
     quads, _ = _layers_scene([0.5, 0.1])  # drawn LAST (orders after fars)
@@ -555,7 +546,7 @@ def test_pallas_peel2_exit_bound_is_sound():
     uv = np.tile(np.array([[0.3, 0.3], [0.7, 0.3], [0.3, 0.7]], np.float32),
                  (T, 1, 1))
     outs = []
-    for kw in (dict(), dict(noexit=True), dict(exit_lag2=True)):
+    for kw in (dict(chunk=128), dict(chunk=4), dict(chunk=1)):
         c, d = _run_state(clip, uv, MESH_BLEND,
                           dict(pallas=True, peel2=True, **kw))
         outs.append((c, d))

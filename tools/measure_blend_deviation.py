@@ -7,7 +7,7 @@ FINAL visible fragment against the pre-pass framebuffer, while exact mode
 reproduces Vulkan's per-fragment sequential blending — with overdraw the
 two accumulate differently.  This renders configs 4/5 at reduced
 resolution through both paths on the same device and reports the u8
-deviation; the measured bound goes into BASELINE.md.  Run on TPU:
+deviation.  Run on a GPU (peel2 needs the visibility kernel):
     python tools/measure_blend_deviation.py
 """
 
@@ -15,8 +15,6 @@ import dataclasses
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax

@@ -10,8 +10,6 @@ full RenderWindow frame loop and writes the last presented frame.
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 

@@ -1,22 +1,22 @@
-"""tyleri_tpu — a TPU-native rasterization framework.
+"""tyleri_tpu — a software rasterization framework in JAX.
 
 A ground-up re-design of the capabilities of ``ping-pong-room/tyleri-renderer``
-(a Rust/Vulkan forward renderer, reference at ``/root/reference``) for TPU
-hardware: the compute path is JAX/XLA/Pallas, scaling is ``jax.sharding`` over
-device meshes, and the per-frame hot loop is a jitted visibility-buffer
-rasterizer whose coverage/depth math rides the MXU.
+(a Rust/Vulkan forward renderer) for an accelerator without fixed-function
+raster hardware, here an NVIDIA GPU: the compute path is JAX/XLA plus one
+Pallas kernel (Triton route), scaling is ``jax.sharding`` over device meshes,
+and the per-frame hot loop is a jitted visibility-buffer rasterizer.
 
 Layer map (mirrors reference ``src/lib.rs:15-21`` module layout):
 
   L0 device/     RenderDevice + RenderDeviceBuilder  (ref: src/render_device*)
   L1 resource/   arenas, allocator, upload API       (ref: src/resource/)
   L2 pipeline/   pipeline state + shader equivalents (ref: src/pipeline/)
-  LK ops/        Pallas/XLA kernels (the TPU "fixed function" hardware)
+  LK ops/        Pallas/XLA kernels (the "fixed function" hardware)
   L3 rendering/  RenderingFunction protocol + forward(ref: src/rendering_function/)
   L4 scene/      Camera, MeshRenderer, UI, RenderScene (ref: src/render_scene.rs,
                  src/render_objects/)
   L5 window/     swapchain ring + RenderWindow        (ref: src/render_window*)
-  parallel/      multi-chip tile/draw sharding (no reference analog; TPU-first)
+  parallel/      multi-card tile/draw sharding (no reference analog)
   models/        built-in geometry + the 5 BASELINE scene configs
   testing/       numpy oracle rasterizer implementing Vulkan raster rules
 

@@ -6,7 +6,7 @@ The reference consumes two vertex formats from its sibling crate
 * ``Vertex``: pos vec3 + uv vec2     (ref: src/pipeline/glsl/common_pipeline.vert:5-6)
 * ``UIVertex``: pos vec2 + uv vec2 + color vec4  (ref: src/pipeline/glsl/ui.vert:3-5)
 
-TPU-natively, vertex data lives as struct-of-arrays device buffers; these
+Here vertex data lives as struct-of-arrays device buffers; these
 classes are thin host-side constructors/validators that pack user data into
 the SoA layout the kernels consume.
 """

@@ -7,8 +7,8 @@ mapped to JAX backends:
 * instance creation + optional validation layer -> backend init + the
   DebugMessenger validation layer (builders.rs:93-130)
 * physical-device pick by explicit id or score — discrete GPU +1000, max 2D
-  image dim, geometry-shader required (builders.rs:167-221) -> accelerator
-  (TPU/GPU) +1000 over CPU, tie-broken by core/memory capacity
+  image dim, geometry-shader required (builders.rs:167-221) -> GPU +1000
+  over CPU, tie-broken by memory capacity
 * dual queues (present + dedicated transfer, builders.rs:222-286) -> the
   dispatch-queue pool + the upload queue (raises if the pool cannot hold 2
   queues — the reference panics without 2 queues, builders.rs:282)
@@ -55,10 +55,10 @@ class DeviceSelectionError(RuntimeError):
 
 def device_score(device) -> int:
     """Reference scoring (builders.rs:167-184): discrete GPU +1000 + max 2D
-    image dimension, geometry shader mandatory. TPU-native: accelerators get
-    +1000 over host CPU; memory capacity breaks ties (the image-dim analog)."""
+    image dimension, geometry shader mandatory. Here: a GPU gets +1000 over
+    the host CPU; memory capacity breaks ties (the image-dim analog)."""
     score = 0
-    if device.platform in ("tpu", "gpu"):
+    if device.platform == "gpu":
         score += 1000
     try:
         stats = device.memory_stats()
@@ -136,7 +136,7 @@ class RenderDeviceBuilder:
     @staticmethod
     def _supports_presentation(device, handle) -> bool:
         """Surface-support analog (the reference asks Vulkan per queue
-        family x window, builders.rs:185-221).  The TPU presents by
+        family x window, builders.rs:185-221).  The device presents by
         device->host copy, so support decomposes into (a) handle validity
         (OS handles must be well-formed ints) and (b) an actual capability
         query: a handle that names an OS window/display needs a windowing

@@ -18,42 +18,52 @@ import os
 import zipfile
 
 
+# the checkout's own cache directory, used when neither the caller nor
+# JAX_COMPILATION_CACHE_DIR names one (a fixed path: the path is part of
+# the cache key, so a directory that moves never hits)
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache")
+
+
+def default_directory() -> str:
+    """JAX_COMPILATION_CACHE_DIR when set (then the only cache directory),
+    else the checkout's ``.jax_cache``."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_DIR
+
+
 class PipelineCache:
     def __init__(self, directory: str | None = None,
                  min_compile_seconds: float = 1.0,
                  seed: bytes | None = None):
-        if seed is not None and not directory:
-            import tempfile
-
-            directory = tempfile.mkdtemp(prefix="tyleri-pcache-")
+        # an explicit directory is the caller's choice; otherwise the
+        # environment's (a seed unpacks into it) or the checkout's default
+        directory = directory or default_directory()
         self.directory = directory
         self.enabled = False
         try:
             from tyleri_tpu.utils.cache_hardening import install
 
-            install()  # atomic cache-entry writes (see module docstring) —
-            # installed even without an explicit directory: the process may
-            # cache via JAX_COMPILATION_CACHE_DIR (bench/tools set it)
+            install()  # atomic cache-entry writes (see module docstring)
         except Exception:
             pass
-        if directory:
-            try:
-                import jax
+        try:
+            import jax
 
-                os.makedirs(directory, exist_ok=True)
-                if seed:
-                    self._unpack(seed, directory)
-                jax.config.update("jax_compilation_cache_dir", directory)
-                jax.config.update(
-                    "jax_persistent_cache_min_compile_time_secs",
-                    float(min_compile_seconds),
-                )
-                self.enabled = True
-            except Exception:
-                # cache is an optimization; never fail device creation on it
-                # (the reference has a "TODO check if cache is valid" at
-                # builders.rs:321-331 — same fail-open policy)
-                self.enabled = False
+            os.makedirs(directory, exist_ok=True)
+            if seed:
+                self._unpack(seed, directory)
+            jax.config.update("jax_compilation_cache_dir", directory)
+            jax.config.update(
+                "jax_persistent_cache_min_compile_time_secs",
+                float(min_compile_seconds),
+            )
+            self.enabled = True
+        except Exception:
+            # cache is an optimization; never fail device creation on it
+            # (the reference has a "TODO check if cache is valid" at
+            # builders.rs:321-331 — same fail-open policy)
+            self.enabled = False
 
     @staticmethod
     def _unpack(data: bytes, directory: str) -> None:

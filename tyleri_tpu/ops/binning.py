@@ -1,7 +1,7 @@
 """Tile binning: expand triangles to (tile, triangle) entries, sort by tile,
 and build the sorted entry table the per-tile rasterizer streams.
 
-This is the TPU-native replacement for the reference's draw-call-level
+This is the replacement for the reference's draw-call-level
 parallelism (rayon round-robin over secondary command buffers, ref:
 src/render_objects/mod.rs:5-30, forward_rendering/mod.rs:297-313): instead of
 threads recording draws, the screen is a tile grid and every (tile, triangle)
@@ -21,7 +21,7 @@ everything static-shaped for XLA:
      over (quantized z, CH_ORDER draw order), so any in-tile processing
      order is exact; FRONT-TO-BACK order lets the rasterizer stop a tile's
      stream as soon as every pixel's depth is below the next entry's z-min
-     bound (measured ~60% of sponza-1M entries are skippable that way).
+     bound (the front-to-back early exit of ops/raster_pallas.py).
      Draw-order depth ties are arbitrated per entry by the CH_ORDER channel
      in both backends.
   3. per-tile segment boundaries come from searchsorted.
@@ -52,7 +52,6 @@ class BinnedEntries(NamedTuple):
     num_entries: jax.Array     # i32 [] total live entries
     overflow: jax.Array        # i32 [] entries dropped (capacity exceeded)
     broad_channels: jax.Array  # f32 [B_cap, NUM_CHANNELS] huge-triangle list
-    broad_channels_cm: jax.Array  # f32 [NUM_CHANNELS, B_cap] kernel layout
     broad_tiles: jax.Array     # i32 [B_cap, 4] tile bbox (tx0, ty0, tx1, ty1)
     num_broad: jax.Array       # i32 [] live broad entries
     # optional extra per-entry attribute rows (lit path: world-normal/w
@@ -145,13 +144,11 @@ def bin_triangles(
 
     dense_live = jnp.sum(is_narrow.astype(jnp.int32))
 
-    # Expansion from ONE T-row packed 2-operand sort + ELEMENTWISE emits.
-    # Measured on TPU, every data-dependent row of gather / scatter /
-    # jnp.repeat (which lowers to an HLO scatter-add) costs ~40-90 ns of
-    # fixed latency, so any expansion formulation touching ~10^5+ such rows
-    # loses tens of ms: full-table jnp.repeat ~16 ms, searchsorted-over-
-    # cumsum compaction ~39 ms, compacted gather+repeat chains ~35 ms.
-    # Sorts, by contrast, run ~5 ms per million rows and slice for free.
+    # Expansion from ONE T-row packed 2-operand sort + ELEMENTWISE emits:
+    # no data-dependent gather / scatter / jnp.repeat (an HLO scatter-add)
+    # per emitted row.  This shape was priced on the previous accelerator,
+    # where such rows cost fixed latency each; its cost on the GPU is not
+    # measured yet (ROADMAP S4).
     #
     # The sort key packs (dead, 31 - scount, tw - 1, tri) so narrow
     # triangles sort by DESCENDING spill count, giving nested prefixes:
@@ -338,7 +335,6 @@ def bin_triangles(
         num_entries=jnp.minimum(live_placed, entry_cap).astype(jnp.int32),
         overflow=overflow.astype(jnp.int32),
         broad_channels=broad_channels,
-        broad_channels_cm=jnp.transpose(broad_channels),
         broad_tiles=broad_tiles,
         num_broad=jnp.minimum(num_broad, broad_cap).astype(jnp.int32),
         entry_extra=entry_extra,

@@ -15,9 +15,9 @@ w <= eps crossing:
 Design: crossing triangles are COMPACTED into a small work set of
 ``extra_cap`` slots first, and all rotate/lerp math runs on those rows only.
 Rationale: a traced ``lax.cond`` around the heavy path gets flattened to a
-select by XLA whenever it feels like it (both branches execute — this cost
-~75 ms/frame over 1M triangles even with zero crossings), while mask +
-cumsum + a 256-row gather/scatter is O(T) cheap ops + O(extra_cap) math.
+select by XLA whenever it feels like it (both branches execute, with zero
+crossings too), while mask + cumsum + a 256-row gather/scatter is O(T)
+cheap ops + O(extra_cap) math.
 
 Work-set slots hold both the in-place rewrite and (for n_in == 2) the extra
 triangle, so one capacity bounds both.  A crossing triangle beyond capacity
@@ -170,39 +170,5 @@ def near_clip_triangles(clip, uv, tex_id, valid, *, extra_cap: int) -> ClippedTr
         valid=jnp.concatenate([main_valid, xv]),
         order=jnp.concatenate([order, xo]),
         overflow=overflow.astype(jnp.int32),
-        crossings=n_needs.astype(jnp.int32),
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("extra_cap",))
-def near_cull_triangles(clip, uv, tex_id, valid, *, extra_cap: int) -> ClippedTriangles:
-    """The adaptive clip-SKIP path: the full crossing machinery above costs
-    ~9 ms/frame at 1M triangles even when NOTHING crosses (the scan +
-    compaction + rewrite run unconditionally — a traced cond would flatten).
-    When occupancy feedback has observed crossing-free frames
-    (ForwardRenderingFunction.note_overflow), the plan switches to this
-    pass: whole-triangle culling of any crossing triangle, with the count
-    REPORTED as overflow (never silently dropped) so the feedback re-enables
-    real clipping for the next frame.  Output shapes match
-    near_clip_triangles (extra_cap dead rows) so downstream stages are
-    geometry-identical."""
-    T = clip.shape[0]
-    X = extra_cap
-    s = clip[..., 2]
-    n_in = jnp.sum((s >= 0.0).astype(jnp.int32), axis=1)
-    needs = valid & (n_in > 0) & (n_in < 3)
-    n_needs = jnp.sum(needs.astype(jnp.int32))
-    # materialization boundary: the full clip pass's scatter+concat forces
-    # the transformed positions into one buffer; without an equivalent
-    # boundary XLA re-fuses the whole vertex transform into every setup
-    # consumer and the fused frame gets SLOWER than with clipping on
-    clip, uv = jax.lax.optimization_barrier((clip, uv))
-    return ClippedTriangles(
-        clip=jnp.concatenate([clip, jnp.zeros((X, 3, 4), clip.dtype)]),
-        uv=jnp.concatenate([uv, jnp.zeros((X, *uv.shape[1:]), uv.dtype)]),
-        tex_id=jnp.concatenate([tex_id, jnp.zeros((X,), tex_id.dtype)]),
-        valid=jnp.concatenate([valid & (n_in == 3), jnp.zeros((X,), bool)]),
-        order=jnp.arange(T + X, dtype=jnp.float32),
-        overflow=n_needs.astype(jnp.int32),
         crossings=n_needs.astype(jnp.int32),
     )

@@ -4,7 +4,7 @@ The reference renders against a D16_UNORM depth attachment
 (ref: src/render_device/builders.rs:31, forward_rendering/mod.rs:132): depth
 values are stored as 16-bit unsigned-normalized.  For pixel parity we quantize
 interpolated depth onto the same grid before comparison; the framebuffer keeps
-f32 storage (TPU-native) but only ever holds representable D16 values.
+f32 storage but only ever holds representable D16 values.
 """
 
 from __future__ import annotations

@@ -66,8 +66,9 @@ def rasterize_exact(
         # perspective-correct: interpolate (c * 1/w) then divide by 1/w
         inv_w = 1.0 / clip[..., 3]
         vc_over_w = vc * inv_w[..., None]             # [T, 3, 4]
-        # plane coeffs [T, 4(rgba), 3(ABC)]; HIGHEST precision: bf16 MXU
-        # rounding here corrupts interpolated colors by ~1e-3 on TPU.
+        # plane coeffs [T, 4(rgba), 3(ABC)]; HIGHEST precision: a reduced-
+        # precision product (bf16 or TF32) corrupts interpolated colors by
+        # ~1e-3.
         vc_planes = jnp.einsum("tik,tic->tkc", vc_over_w, su.lam,
                                precision=jax.lax.Precision.HIGHEST)
     else:

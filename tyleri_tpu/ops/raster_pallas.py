@@ -1,42 +1,29 @@
-"""Pallas TPU kernel for the per-tile visibility resolve — the hot loop.
+"""Pallas kernel (Triton route) for the per-tile visibility resolve — the
+hot loop of every mesh frame.
 
-Functionally identical to ops/visibility.py (the XLA reference
-implementation; tests assert agreement), but hand-scheduled for TPU:
+Functionally identical to ops/visibility.py (the plain XLA reference; tests
+assert agreement), but it pays for live entries instead of static slots:
 
-* the framebuffer tile is (8, 128) pixels — one VPU native vector — and each
-  grid program owns one tile's resolve end-to-end in VMEM registers
-* the sorted entry table reaches the kernel ROW-major [E, 128] (24 live
-  channels zero-padded to the 128-lane tile, which is physically free —
-  row-major (8,128)-tiled rows are lane-padded in HBM anyway).  Row-major
-  is the layout the binning gather produces natively; a channel-major twin
-  makes XLA's layout assignment fuse the transpose INTO the gather —
-  strided row writes, measured 3.5x slower than the row gather.  Each tile
-  DMAs its segment in [CHUNK, 128] leading-dim slices into SMEM
-  (leading-dim DMA offsets need no alignment; lane extents must be whole
-  128-lane tiles — hence the pad; double-buffered, overlapped with
-  compute) and processes entries sequentially: per entry, plane evaluation
-  + coverage + depth test are ~30 native vector ops over the whole tile,
-  with coefficients as SMEM scalar loads (Mosaic cannot scalar-index VMEM
-  lanes dynamically — hence SMEM staging)
+* one program per screen tile.  Tiles are independent, so nothing carries
+  between programs; the tile's pixels are one [tile_h, tile_w] block spread
+  over the program's warps
+* each program reads its own segment bounds ``tile_start[t]`` and
+  ``tile_start[t + 1]`` and walks the binned entries of that segment in
+  row-major [E, NUM_CHANNELS] order, one entry at a time: the entry's plane
+  coefficients are scalar loads broadcast over the tile's pixels
 * the per-pixel resolve is an associative lexicographic min over
   (quantized z, CH_ORDER draw order) — exactly Vulkan submission-order
   semantics for LESS / LESS_OR_EQUAL depth test+write, in any processing
-  order.  Binning exploits that by sorting each tile's entries FRONT TO
-  BACK by a conservative per-triangle z-min bound (CH_ZMIN), and this
-  kernel carries a per-tile threshold ``thresh = max(zbuf)``: once the
-  next entry's z-min exceeds it, no remaining entry in the (ascending)
-  stream can pass the depth test anywhere in the tile, so the rest of the
-  segment is skipped — *exactly*, not approximately (the bound construction
-  in ops/setup.py::_zmin_quantized covers f32 evaluation error).  Measured
-  on sponza-1M: ~60% of entries skipped, and skipped chunks also skip
-  their DMA (ascending z-min makes deadness monotone per tile)
-* chunk windows start exactly at ``start`` (leading-dim DMA offsets need
-  no alignment) so no dead lead slots ride the entry loop; only a window
-  clamped against ``e_cap`` re-covers processed entries, which is
-  idempotent under the associative resolve
-* the huge-triangle ("broad") side list lives wholly in SMEM and is scanned
-  by every tile with a scalar bbox test, after the narrow stream (order of
-  lists is immaterial: same associative resolve)
+  order.  Binning sorts each tile's entries FRONT TO BACK by a conservative
+  per-triangle z-min bound (CH_ZMIN), and the walk carries the threshold
+  ``max(zbuf)`` of the tile: once a chunk's first entry has a z-min above
+  it, no remaining entry in the ascending stream can pass the depth test
+  anywhere in the tile, so the segment's walk stops — *exactly*, not
+  approximately (the bound construction in ops/setup.py::_zmin_quantized
+  covers f32 evaluation error)
+* the huge-triangle ("broad") side list stays in device memory and is
+  scanned by every tile with a bbox test after the narrow stream (order of
+  lists is immaterial: same associative resolve), bounded by its live count
 
 Depth semantics: LESS_OR_EQUAL / LESS with depth test+write (the reference
 pipelines' configuration, ref: src/pipeline/common_pipeline.rs:107-116).
@@ -49,481 +36,265 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from tyleri_tpu.ops import setup as S
 from tyleri_tpu.ops.binning import BinnedEntries
 from tyleri_tpu.ops.visibility import VisibilityBuffer
 from tyleri_tpu.pipeline.state import CompareOp, DepthFormat, DepthState
 
-# The broad side list is SMEM-resident: [NUM_CHANNELS, B] channels +
-# [B, 4] bboxes = 112 B/entry against the ~1 MB SMEM core budget, of which
-# the chunk staging buffer takes 2*chunk*128*4 (128 KB at chunk=128).
-# 4096 broads = 448 KB, comfortably under; anything past this must be a
-# binning-parameter bug (real scenes have tens of broads), so the growth
-# feedback clamps here and keeps REPORTING overflow instead of growing.
-BROAD_CAP_SMEM_MAX = 4096
+# entries resolved per inner-loop iteration: their scalar loads are
+# independent of each other, so the compiler can issue them together
+_UNROLL = 4
+_INV_Q = 1.0 / 65535.0
 
 
-def _check_broad_smem(b_cap: int, where: str) -> None:
-    if b_cap > BROAD_CAP_SMEM_MAX:
-        raise ValueError(
-            f"broad_cap {b_cap} exceeds the SMEM-resident ceiling "
-            f"{BROAD_CAP_SMEM_MAX} for {where}: the [NUM_CHANNELS, B] broad "
-            "table lives in SMEM (~1 MB/core) and Mosaic fails allocation "
-            "with an opaque compile error past it"
-        )
+def _round_half_even(x):
+    """Round-to-nearest-even for 0 <= x < 2^22 (the D16 grid scale), with
+    floor alone — the Triton route has no round primitive.  ``x + 0.5`` is
+    exact in that range, so this equals jnp.round bit for bit."""
+    r = jnp.floor(x + 0.5)
+    tie = (r - x) == 0.5
+    odd = (r - 2.0 * jnp.floor(r * 0.5)) == 1.0
+    return jnp.where(tie & odd, r - 1.0, r)
+
+
+def kernel_supports(tile_w: int, tile_h: int, depth_state: DepthState) -> bool:
+    """The kernel's envelope: power-of-two tile sides (Triton blocks) and
+    depth test+write with LESS / LESS_OR_EQUAL."""
+    def pow2(n):
+        return n > 0 and n & (n - 1) == 0
+
+    return (
+        pow2(tile_w) and pow2(tile_h)
+        and depth_state.test_enable and depth_state.write_enable
+        and depth_state.compare_op in (CompareOp.LESS, CompareOp.LESS_OR_EQUAL)
+    )
 
 
 def _visibility_kernel(
-    # scalar prefetch
-    tile_start_ref,   # i32 [ntiles + 1] (SMEM)
-    scissor_ref,      # i32 [4] (SMEM)
-    nbroad_ref,       # i32 [1] live broad-entry count (SMEM)
-    # inputs
-    entries_ref,      # f32 [E, 128] (HBM/ANY) row-major, lane-padded:
-                      # chunk DMAs slice the leading dim (unaligned-OK)
-    broad_ch_ref,     # f32 [NUM_CHANNELS, B] (SMEM)
-    broad_bbox_ref,   # f32 [4, B] (SMEM; entry-minor — a [B, 4]
-                      #   SMEM window pads the minor dim to 128 lanes: 2 MB
-                      #   at B=4096, over the ~1 MB SMEM budget)
-    depth_init_ref,   # f32 [th, tw] (VMEM block)
-    # outputs
-    owner_ref,        # i32 [th, tw]
-    z_ref,            # f32 [th, tw]
-    order_ref,        # f32 [th, tw]
-    uw_ref,           # f32 [th, tw] winner u/w
-    vw_ref,           # f32 [th, tw] winner v/w
-    iw_ref,           # f32 [th, tw] winner 1/w
-    tex_ref,          # i32 [th, tw] winner texture slot
-    # [7 more layer-2 outputs in the same order if peel2]
-    # [nvis_ref i32 (1,1) SMEM if debug_counts] + scratch:
-    #   ebuf f32 [2, CHUNK, 128] (SMEM), sem DMA sems [2]
-    *rest,
+    tile_start_ref,   # i32 [ntiles + 1] segment offsets
+    scissor_ref,      # i32 [5] scissor (x, y, w, h) in frame coordinates,
+                      # then the frame row of the tile grid's first row
+    nbroad_ref,       # i32 [1] live broad-entry count
+    entries_ref,      # f32 [E, NUM_CHANNELS] row-major sorted entry table
+    broad_ch_ref,     # f32 [B, NUM_CHANNELS]
+    broad_tiles_ref,  # i32 [B, 4] tile bbox (tx0, ty0, tx1, ty1)
+    depth_init_ref,   # f32 [tile_h, tile_w] block
+    *out_refs,        # 7 [tile_h, tile_w] blocks (owner, z, order, uw, vw,
+                      # iw, tex), 7 more for layer 2 if peel2
     tile_w: int,
     tile_h: int,
     grid_w: int,
     chunk: int,
     e_cap: int,
+    n_broad_cap: int,
     owner_base: int,   # LOGICAL entry-table length: broad owner j maps to
                        # owner_base + j (shade and the lit path index
                        # concat(entry, broad) tables)
-    depth_state: DepthState,
+    d16: bool,
     le: bool,
-    debug_counts: bool = False,
-    lag2: bool = False,
-    exit_while: bool = False,
-    tiles_per_prog: int = 1,  # independent (tile_h, tile_w) tiles resolved
-                              # sequentially per grid program: divides the
-                              # per-program fixed cost (prologue, output
-                              # pipeline) without changing per-entry work
-    noexit: bool = False,     # drop the front-to-back early-exit gate
-                              # entirely (no per-chunk zmin scalar read, no
-                              # tile-zmax vector->scalar reduce): at high
-                              # winner density the gate's serialization can
-                              # cost more than the skipped entries save
-                              # (round-3 standalone: exit-free 43.8 ms vs
-                              # production 47.6 on the same table)
-    peel2: bool = False,      # carry the top-2 (z, order) fragments per
-                              # pixel; the deferred shade blends layer 2
-                              # then layer 1 (per-fragment sequential-blend
-                              # parity to within the third layer)
+    peel2: bool,
 ):
-    if peel2:
-        l2_refs = list(rest[:7])
-        rest = rest[7:]
-    if debug_counts:
-        nvis_ref, *scr = rest
-    else:
-        scr = list(rest)
-    ebuf, sem = scr
-    gy0 = pl.program_id(0)
+    gy = pl.program_id(0)
     gx = pl.program_id(1)
-    # sub-tile loop: each grid program resolves tiles_per_prog
-    # vertically-adjacent tiles end-to-end (static python loop)
-    for _ts in range(tiles_per_prog):
-        gy = gy0 * tiles_per_prog + _ts
-        t = gy * grid_w + gx
-        start = tile_start_ref[t]
-        end = tile_start_ref[t + 1]
+    t = gy * grid_w + gx
+    start = tile_start_ref[t]
+    end = tile_start_ref[t + 1]
 
-        # Single-block resolve over the whole [tile_h, tile_w] tile per entry.
-        # (Measured alternative: splitting into 8-row halves with a per-entry
-        # scalar branch on a pixel-row bbox to skip untouched halves —
-        # 133 ms vs 98 ms on the 1M-tri config: Mosaic's per-entry lax.cond
-        # costs more than the skipped vector work saves at 2 vregs/op.)
-        halves = 1
-        HB = tile_h
+    shape = (tile_h, tile_w)
+    row0 = scissor_ref[4]
+    xc = gx * tile_w + jax.lax.broadcasted_iota(jnp.int32, shape, 1)
+    yc = row0 + gy * tile_h + jax.lax.broadcasted_iota(jnp.int32, shape, 0)
+    xf = xc.astype(jnp.float32) + 0.5
+    yf = yc.astype(jnp.float32) + 0.5
+    sx, sy, sw, sh = (scissor_ref[i] for i in range(4))
+    in_scissor = (xc >= sx) & (xc < sx + sw) & (yc >= sy) & (yc < sy + sh)
 
-        xcb = gx * tile_w + jax.lax.broadcasted_iota(jnp.int32, (HB, tile_w), 1)
-        xfb = xcb.astype(jnp.float32) + 0.5
-        sc_x = (xcb >= scissor_ref[0]) & (xcb < scissor_ref[0] + scissor_ref[2])
+    def resolve(coeff, eid, live, st):
+        """One entry vs the tile.  ``coeff(row)`` is a scalar load of the
+        entry's plane coefficient; liveness folds into the coverage mask.
 
-        def half_rows(h):
-            return gy * tile_h + h * HB + jax.lax.broadcasted_iota(
-                jnp.int32, (HB, tile_w), 0
-            )
+        Equal-depth ties resolve lexicographically by the CH_ORDER channel
+        against the incumbent's order — LE keeps the latest draw, LESS the
+        earliest (obuf = -1 for pre-pass depth, so equal-z vs prior content
+        correctly fails under LESS and passes under LE).
 
-        in_scissor_h = []
-        yf_h = []
-        for h in range(halves):
-            yc = half_rows(h)
-            in_scissor_h.append(
-                sc_x & (yc >= scissor_ref[1]) & (yc < scissor_ref[1] + scissor_ref[3])
-            )
-            yf_h.append(yc.astype(jnp.float32) + 0.5)
-
-        d16 = depth_state.format == DepthFormat.D16_UNORM
-
-        def resolve_half(coeff, eid, live, h, st_h):
-            """One entry vs one block (carry = that block's state).
-
-            Equal-depth ties resolve lexicographically by the CH_ORDER channel
-            against the incumbent's order — LE keeps the latest draw, LESS the
-            earliest (obuf = -1 for pre-pass depth, so equal-z vs prior content
-            correctly fails under LESS and passes under LE).  This is the
-            associative (z, order) min: entry streams may arrive in any order
-            (binning sorts them front-to-back for the early exit).
-
-            peel2: the carry additionally holds the depth-record holder
-            immediately BEFORE the winner drew — the second-to-last
-            surviving fragment of the exact sequential depth test (see the
-            rules at the update site below; the naive global top-2 by
-            (z, order) can select a fragment exact mode never blended).
-            The deferred shade applies the blend equation over
-            layer2-then-layer1, recovering per-fragment sequential blending
-            exactly on every pixel with <= 2 surviving fragments and
-            truncating deeper survivors (ref
-            src/pipeline/common_pipeline.rs:117-131)."""
-            if peel2:
-                (zbuf, owner, obuf, uwb, vwb, iwb, texb,
-                 z2, own2, o2, uw2, vw2, iw2, tex2) = st_h
-            else:
-                zbuf, owner, obuf, uwb, vwb, iwb, texb = st_h
-            xf = xfb
-            yf = yf_h[h]
-
-            def plane(row):
-                return coeff(row) * xf + coeff(row + 1) * yf + coeff(row + 2)
-
-            meta = coeff(S.CH_META).astype(jnp.int32)
-            tl = meta >> S.META_TEX_BITS
-            e0 = plane(S.CH_E0)
-            e1 = plane(S.CH_E1)
-            # derived edge: e0+e1+e2 == |2A| (one scalar load instead of a
-            # 3-load plane eval — the per-entry SMEM scalar loads are the
-            # kernel's measured serial bottleneck); expression order matches
-            # ops/visibility.py exactly for cross-backend parity
-            e2 = (coeff(S.CH_TWOA) - e0) - e1
-            # (A signed-int-compare formulation of the top-left rule — one cmp
-            # per edge via bitcast — measures faster but DIVERGES from the XLA
-            # path near zero: float compares and int-viewed bits disagree on
-            # denormal plane values, so coverage stays in float.)
-            cov = (
-                ((e0 > 0) | ((e0 == 0) & ((tl & 1) > 0)))
-                & ((e1 > 0) | ((e1 == 0) & ((tl & 2) > 0)))
-                & ((e2 > 0) | ((e2 == 0) & ((tl & 4) > 0)))
-            )
-            z = plane(S.CH_Z)
-            zc = jnp.clip(z, 0.0, 1.0)
-            zq = jnp.round(zc * 65535.0) * (1.0 / 65535.0) if d16 else zc
-            order = coeff(S.CH_ORDER)
-            # z in [0, 1] iff clipping was a no-op (one compare; NaN fails)
-            frag = cov & (z == zc) & in_scissor_h[h] & live
-            if le:
-                passing = frag & ((zq < zbuf) | ((zq == zbuf) & (order >= obuf)))
-            else:
-                passing = frag & ((zq < zbuf) | ((zq == zbuf) & (order < obuf)))
-            if peel2:
-                # Layer 2 is the depth-RECORD holder immediately before
-                # the winner drew (the second-to-last SURVIVOR of the
-                # sequential depth test) — NOT the global second-best
-                # (z, order): a fragment drawn after the winner with
-                # greater z never blended in exact mode, and blending it
-                # deviates where even the single-layer path is exact
-                # (measured on config4: naive top-2 was WORSE than
-                # single-layer).  Three rules keep the survivor invariant
-                # in one streaming pass (lex comparisons reuse the depth
-                # tie rule):
-                #   * a non-winning fragment is a candidate only if drawn
-                #     before the current winner (order < obuf)
-                #   * on a winner change the old winner demotes only if
-                #     drawn before the new one (obuf < order); otherwise
-                #     the old layer 2 is kept only while still
-                #     order-valid (o2 < order), else the slot keeps the
-                #     old winner's (z, order) as a record GATE with
-                #     own2 = -1 (unshadeable): the true record is at
-                #     least that deep, we just cannot name its fragment
-                #   * z2 never increases, so the peel-aware early-exit
-                #     bound (zi below) stays sound
-                # A gated/absent layer 2 shades as background — such
-                # pixels fall back to single-layer semantics, never to a
-                # fragment exact mode did not blend.
-                valid2 = order < obuf
-                if le:
-                    beats2 = (frag & ~passing & valid2
-                              & ((zq < z2) | ((zq == z2) & (order >= o2))))
-                else:
-                    beats2 = (frag & ~passing & valid2
-                              & ((zq < z2) | ((zq == z2) & (order < o2))))
-                demote = passing & (obuf < order)
-                inval = passing & ~demote & ~(o2 < order)
-                repl = demote | inval
-                z2 = jnp.where(repl, zbuf, jnp.where(beats2, zq, z2))
-                own2 = jnp.where(demote, owner,
-                                 jnp.where(inval, -1,
-                                           jnp.where(beats2, eid, own2)))
-                o2 = jnp.where(repl, obuf, jnp.where(beats2, order, o2))
-                uwf = plane(S.CH_UW)
-                vwf = plane(S.CH_VW)
-                iwf = plane(S.CH_INVW)
-                texf = meta & S.META_TEX_MASK
-                uw2 = jnp.where(repl, uwb, jnp.where(beats2, uwf, uw2))
-                vw2 = jnp.where(repl, vwb, jnp.where(beats2, vwf, vw2))
-                iw2 = jnp.where(repl, iwb, jnp.where(beats2, iwf, iw2))
-                tex2 = jnp.where(repl, texb, jnp.where(beats2, texf, tex2))
-                zbuf = jnp.where(passing, zq, zbuf)
-                owner = jnp.where(passing, eid, owner)
-                obuf = jnp.where(passing, order, obuf)
-                uwb = jnp.where(passing, uwf, uwb)
-                vwb = jnp.where(passing, vwf, vwb)
-                iwb = jnp.where(passing, iwf, iwb)
-                texb = jnp.where(passing, texf, texb)
-                return (zbuf, owner, obuf, uwb, vwb, iwb, texb,
-                        z2, own2, o2, uw2, vw2, iw2, tex2)
-            zbuf = jnp.where(passing, zq, zbuf)
-            owner = jnp.where(passing, eid, owner)
-            obuf = jnp.where(passing, order, obuf)
-            uwb = jnp.where(passing, plane(S.CH_UW), uwb)
-            vwb = jnp.where(passing, plane(S.CH_VW), vwb)
-            iwb = jnp.where(passing, plane(S.CH_INVW), iwb)
-            texb = jnp.where(passing, meta & S.META_TEX_MASK, texb)
-            return zbuf, owner, obuf, uwb, vwb, iwb, texb
-
-        def resolve_entry(coeff, eid, live, st):
-            """One entry vs the tile (liveness folds into the coverage mask —
-            cheaper than a scalar branch per entry).  ``coeff(row)`` is a
-            scalar load from the entry's column (must read through a Ref —
-            Mosaic has no dynamic slicing of loaded vectors).  The carry also
-            tracks the winner's shading attributes (u/w, v/w, 1/w, tex) so the
-            deferred shade pass needs no per-pixel table gather."""
-            return tuple(
-                resolve_half(coeff, eid, live, h, st[h])
-                for h in range(halves)
-            )
-
-        zb0 = depth_init_ref[_ts * tile_h:(_ts + 1) * tile_h, :]
-
-        def layer0(h):
-            return (
-                zb0[h * HB:(h + 1) * HB, :],
-                jnp.full((HB, tile_w), -1, jnp.int32),
-                jnp.full((HB, tile_w), -1.0, jnp.float32),
-                jnp.zeros((HB, tile_w), jnp.float32),
-                jnp.zeros((HB, tile_w), jnp.float32),
-                jnp.ones((HB, tile_w), jnp.float32),
-                jnp.zeros((HB, tile_w), jnp.int32),
-            )
-
-        state0 = tuple(
-            layer0(h) + layer0(h) if peel2 else layer0(h)
-            for h in range(halves)
-        )
-
-        # ---- narrow entries: double-buffered DMA over the tile's segment ----
-        # Windows start exactly at ``start`` (leading-dim DMA offsets need no
-        # alignment on TPU — only lane extents must be whole 128-lane tiles),
-        # so no dead lead slots ride the entry loop and the exit gate tests the
-        # true next unprocessed entry.  Only the segment's LAST window can
-        # clamp against e_cap and re-cover processed entries; re-processing is
-        # idempotent under the associative (z, order) resolve.
-        #
-        nchunks = jnp.where(end > start, pl.cdiv(end - start, chunk), 0)
-
-        def chunk_slice(k):
-            return jnp.minimum(start + k * chunk, e_cap - chunk)
-
-        def start_dma(slot, k):
-            return pltpu.make_async_copy(
-                entries_ref.at[pl.ds(chunk_slice(k), chunk), :],
-                ebuf.at[slot],
-                sem.at[slot],
-            )
-
-        def dma_start(slot, k):
-            start_dma(slot, k).start()
-
-        def dma_wait(slot, k):
-            start_dma(slot, k).wait()
-
-        @pl.when(nchunks > 0)
-        def _():
-            dma_start(0, 0)
-
-        # Early-exit threshold: the max depth over the tile.  The stream is
-        # sorted ascending by the conservative CH_ZMIN bound, so once a chunk's
-        # first live entry has zmin > thresh, no remaining entry can pass the
-        # depth test anywhere in the tile — the rest of the segment (and its
-        # DMAs) is skipped.  Deadness is monotone, so the carried ``alive`` flag
-        # also gates the waits (a DMA is only waited on if it was started).
-        def tile_zmax(st):
-            # peel2: the exit bound must admit entries that could still enter
-            # LAYER 2 (z2 >= z1 everywhere), so the threshold is max over z2
-            zi = 7 if peel2 else 0
-            m = None
-            for h in range(halves):
-                mh = jnp.max(st[h][zi])
-                m = mh if m is None else jnp.maximum(m, mh)
-            return m
-
-        inv_q = jnp.float32(1.0 / 65535.0)
-
-        def chunk_body(k, carry):
-            # uniform carry: (state, thresh, thresh1, alive, nvis) — thresh1 is
-            # the pending lag2 publication (mirrors thresh otherwise), nvis the
-            # debug visit counter (constant 0 otherwise; both cost one scalar)
-            state, thresh, thresh1, alive, nvis = carry
-            slot = jax.lax.rem(k, 2)
-
-            @pl.when(alive)
-            def _():
-                dma_wait(slot, k)
-
-            s = chunk_slice(k)
-            if noexit:
-                proceed = alive
-            else:
-                # first UNPROCESSED entry of this window (clamped windows
-                # re-cover processed entries whose smaller zmin only makes
-                # the gate more conservative); ascending zmin makes it the
-                # window's live min
-                idx0 = jnp.maximum(start - s, 0)
-                zmin0 = ebuf[slot, idx0, S.CH_ZMIN] * inv_q
-                proceed = alive & (zmin0 <= thresh)
-
-            @pl.when(proceed & (k + 1 < nchunks))
-            def _():
-                dma_start(jax.lax.rem(k + 1, 2), k + 1)
-
-            # dynamic trip count: only live entries are processed, and a dead
-            # chunk (early exit) runs zero iterations — genuinely free
-            n_here = jnp.where(proceed, jnp.clip(end - s, 0, chunk), 0)
-
-            # 4-entry unroll: cuts loop overhead and lets later entries' SMEM
-            # scalar loads overlap earlier entries' vector work (measured best
-            # of 2/4/8 at 16-row tiles with the row-major table)
-            UNROLL = 4
-
-            def entry_body(jj, inner):
-                j = jj * UNROLL
-                idx = s + j
-                for u in range(UNROLL):
-                    live_u = (idx + u >= start) & (idx + u < end)
-                    c_u = lambda row, u=u: ebuf[slot, j + u, row]  # noqa: E731
-                    inner = resolve_entry(c_u, idx + u, live_u, inner)
-                return inner
-
-            state = jax.lax.fori_loop(
-                0, (n_here + UNROLL - 1) // UNROLL, entry_body, state
-            )
-            nvis = nvis + n_here if debug_counts else nvis
-            # the carried liveness also folds in the chunk-count bound so the
-            # while structure's cond terminates; for the fori structure the
-            # extra term is inert (iteration k+1 only runs when it holds)
-            alive2 = proceed & (k + 1 < nchunks)
-            if noexit:
-                # no threshold maintenance at all: the gate never fires, so
-                # the per-chunk tile-zmax vector->scalar reduce is dead work
-                return state, thresh, thresh1, alive2, nvis
-            if lag2:
-                # publish this chunk's zmax one boundary LATE: the gate for
-                # chunk k+1 uses the (still-valid, looser) bound from k-1, so
-                # the vector->scalar reduce crossing hides behind a full chunk
-                # of entry work instead of serializing every boundary
-                new_zm = jnp.where(proceed, tile_zmax(state), thresh1)
-                return state, thresh1, new_zm, alive2, nvis
-            thresh = jnp.where(proceed, tile_zmax(state), thresh)
-            return state, thresh, thresh, alive2, nvis
-
-        zm0 = tile_zmax(state0)
-        carry0 = (state0, zm0, zm0, nchunks > 0, jnp.int32(0))
-        if exit_while:
-            # dead chunks never iterate at all: no loop scaffolding, no zmax
-            # reduce, no gated-DMA bookkeeping past the exit
-            def w_cond(c):
-                _, carry = c
-                return carry[3]
-
-            def w_body(c):
-                k, carry = c
-                return k + 1, chunk_body(k, carry)
-
-            _, (state, _, _, _, nvis) = jax.lax.while_loop(
-                w_cond, w_body, (jnp.int32(0), carry0))
+        peel2: the state additionally holds the depth-record holder
+        immediately BEFORE the winner drew — the second-to-last surviving
+        fragment of the exact sequential depth test (see the rules at the
+        update site below; the naive global top-2 by (z, order) can select
+        a fragment exact mode never blended).  The deferred shade applies
+        the blend equation over layer2-then-layer1, recovering per-fragment
+        sequential blending exactly on every pixel with <= 2 surviving
+        fragments and truncating deeper survivors (ref
+        src/pipeline/common_pipeline.rs:117-131)."""
+        if peel2:
+            (zbuf, owner, obuf, uwb, vwb, iwb, texb,
+             z2, own2, o2, uw2, vw2, iw2, tex2) = st
         else:
-            state, _, _, _, nvis = jax.lax.fori_loop(
-                0, nchunks, chunk_body, carry0)
-        if debug_counts:
-            # full-array SMEM block (a (1,1) per-program block is no
-            # longer lowerable: Mosaic requires the last two block dims
-            # divisible by (8,128) or equal to the array's)
-            nvis_ref[gy, gx] = nvis
+            zbuf, owner, obuf, uwb, vwb, iwb, texb = st
 
-        # ---- broad entries: SMEM-resident, scalar bbox test, bounded by the
-        # live count (zero-cost when no huge triangles exist) ----
-        B = broad_ch_ref.shape[1]
-        if B > 0:
-            gxf = gx.astype(jnp.float32)
-            gyf = gy.astype(jnp.float32)
+        def plane(row):
+            return coeff(row) * xf + coeff(row + 1) * yf + coeff(row + 2)
 
-            def broad_body(j, carry):
-                live = (
-                    (gxf >= broad_bbox_ref[0, j])
-                    & (gxf <= broad_bbox_ref[2, j])
-                    & (gyf >= broad_bbox_ref[1, j])
-                    & (gyf <= broad_bbox_ref[3, j])
-                )
-                coeff = lambda row: broad_ch_ref[row, j]  # noqa: E731
-                return resolve_entry(coeff, owner_base + j, live, carry)
+        meta = coeff(S.CH_META).astype(jnp.int32)
+        tl = meta >> S.META_TEX_BITS
+        e0 = plane(S.CH_E0)
+        e1 = plane(S.CH_E1)
+        # derived edge: e0+e1+e2 == |2A|; expression order matches
+        # ops/visibility.py exactly for cross-backend parity
+        e2 = (coeff(S.CH_TWOA) - e0) - e1
+        cov = (
+            ((e0 > 0) | ((e0 == 0) & ((tl & 1) > 0)))
+            & ((e1 > 0) | ((e1 == 0) & ((tl & 2) > 0)))
+            & ((e2 > 0) | ((e2 == 0) & ((tl & 4) > 0)))
+        )
+        z = plane(S.CH_Z)
+        zc = jnp.clip(z, 0.0, 1.0)
+        zq = _round_half_even(zc * 65535.0) * _INV_Q if d16 else zc
+        order = coeff(S.CH_ORDER)
+        # z in [0, 1] iff clipping was a no-op (one compare; NaN fails)
+        frag = cov & (z == zc) & in_scissor & live
+        if le:
+            passing = frag & ((zq < zbuf) | ((zq == zbuf) & (order >= obuf)))
+        else:
+            passing = frag & ((zq < zbuf) | ((zq == zbuf) & (order < obuf)))
+        uwf = plane(S.CH_UW)
+        vwf = plane(S.CH_VW)
+        iwf = plane(S.CH_INVW)
+        texf = meta & S.META_TEX_MASK
+        if peel2:
+            # Layer 2 is the depth-RECORD holder immediately before the
+            # winner drew (the second-to-last SURVIVOR of the sequential
+            # depth test) — NOT the global second-best (z, order): a
+            # fragment drawn after the winner with greater z never blended
+            # in exact mode.  Three rules keep the survivor invariant in
+            # one streaming pass (lex comparisons reuse the depth tie
+            # rule):
+            #   * a non-winning fragment is a candidate only if drawn
+            #     before the current winner (order < obuf)
+            #   * on a winner change the old winner demotes only if drawn
+            #     before the new one (obuf < order); otherwise the old
+            #     layer 2 is kept only while still order-valid
+            #     (o2 < order), else the slot keeps the old winner's
+            #     (z, order) as a record GATE with own2 = -1
+            #     (unshadeable): the true record is at least that deep,
+            #     we just cannot name its fragment
+            #   * z2 never increases, so the peel-aware early-exit bound
+            #     (max over z2) stays sound
+            # A gated/absent layer 2 shades as background — such pixels
+            # fall back to single-layer semantics, never to a fragment
+            # exact mode did not blend.
+            valid2 = order < obuf
+            if le:
+                beats2 = (frag & ~passing & valid2
+                          & ((zq < z2) | ((zq == z2) & (order >= o2))))
+            else:
+                beats2 = (frag & ~passing & valid2
+                          & ((zq < z2) | ((zq == z2) & (order < o2))))
+            demote = passing & (obuf < order)
+            inval = passing & ~demote & ~(o2 < order)
+            repl = demote | inval
+            z2 = jnp.where(repl, zbuf, jnp.where(beats2, zq, z2))
+            own2 = jnp.where(demote, owner,
+                             jnp.where(inval, -1,
+                                       jnp.where(beats2, eid, own2)))
+            o2 = jnp.where(repl, obuf, jnp.where(beats2, order, o2))
+            uw2 = jnp.where(repl, uwb, jnp.where(beats2, uwf, uw2))
+            vw2 = jnp.where(repl, vwb, jnp.where(beats2, vwf, vw2))
+            iw2 = jnp.where(repl, iwb, jnp.where(beats2, iwf, iw2))
+            tex2 = jnp.where(repl, texb, jnp.where(beats2, texf, tex2))
+        zbuf = jnp.where(passing, zq, zbuf)
+        owner = jnp.where(passing, eid, owner)
+        obuf = jnp.where(passing, order, obuf)
+        uwb = jnp.where(passing, uwf, uwb)
+        vwb = jnp.where(passing, vwf, vwb)
+        iwb = jnp.where(passing, iwf, iwb)
+        texb = jnp.where(passing, texf, texb)
+        out = (zbuf, owner, obuf, uwb, vwb, iwb, texb)
+        if peel2:
+            out = out + (z2, own2, o2, uw2, vw2, iw2, tex2)
+        return out
 
-            state = jax.lax.fori_loop(
-                0, jnp.minimum(nbroad_ref[0], B), broad_body, state
-            )
+    layer0 = (
+        jnp.full(shape, -1, jnp.int32),
+        jnp.full(shape, -1.0, jnp.float32),
+        jnp.zeros(shape, jnp.float32),
+        jnp.zeros(shape, jnp.float32),
+        jnp.ones(shape, jnp.float32),
+        jnp.zeros(shape, jnp.int32),
+    )
+    zb0 = depth_init_ref[...]
+    state = (zb0,) + layer0
+    if peel2:
+        state = state + (zb0,) + layer0
 
-        for h in range(halves):
-            zbuf, owner, obuf, uwb, vwb, iwb, texb = state[h][:7]
-            sl = slice(_ts * tile_h + h * HB, _ts * tile_h + (h + 1) * HB)
-            owner_ref[sl, :] = owner
-            z_ref[sl, :] = zbuf
-            order_ref[sl, :] = obuf
-            uw_ref[sl, :] = uwb
-            vw_ref[sl, :] = vwb
-            iw_ref[sl, :] = iwb
-            tex_ref[sl, :] = texb
-            if peel2:
-                z2, own2, o2, uw2, vw2, iw2, tex2 = state[h][7:]
-                l2_refs[0][sl, :] = own2
-                l2_refs[1][sl, :] = z2
-                l2_refs[2][sl, :] = o2
-                l2_refs[3][sl, :] = uw2
-                l2_refs[4][sl, :] = vw2
-                l2_refs[5][sl, :] = iw2
-                l2_refs[6][sl, :] = tex2
+    # Early-exit threshold: the max depth over the tile (peel2: over layer
+    # 2, since an entry may still enter layer 2 while z2 >= z1 anywhere).
+    # The stream is sorted ascending by the conservative CH_ZMIN bound and
+    # deadness is monotone, so once a chunk's first entry is dead so is the
+    # rest of the segment.  The chunk loop has a fixed trip count with a
+    # carried ``alive`` flag: a dead chunk costs one load and one reduce.
+    # (Every loop here is a counted loop: Triton lowers lax.while_loop to
+    # scf.while, which fails to compile with refs in its carry.)
+    zi = 7 if peel2 else 0
+    nchunks = jnp.where(end > start, (end - start + chunk - 1) // chunk, 0)
+
+    def entry_block(s, n_here):
+        def body(jj, st):
+            base = s + jj * _UNROLL
+            for u in range(_UNROLL):
+                i = base + u
+                ic = jnp.minimum(i, e_cap - 1)
+                st = resolve(lambda row, ic=ic: entries_ref[ic, row],
+                             ic, i < s + n_here, st)
+            return st
+        return body
+
+    def chunk_body(k, carry):
+        alive, st = carry
+        s = start + k * chunk
+        proceed = (alive != 0) & (
+            entries_ref[s, S.CH_ZMIN] * _INV_Q <= jnp.max(st[zi]))
+        n_here = jnp.where(proceed, jnp.minimum(end - s, chunk), 0)
+        st = jax.lax.fori_loop(
+            0, (n_here + _UNROLL - 1) // _UNROLL, entry_block(s, n_here), st)
+        return proceed.astype(jnp.int32), st
+
+    _, state = jax.lax.fori_loop(
+        0, nchunks, chunk_body, (jnp.int32(1), state))
+
+    # broad entries: bbox test per entry, bounded by the live count
+    if n_broad_cap > 0:
+        def broad_body(j, st):
+            live = ((gx >= broad_tiles_ref[j, 0]) & (gx <= broad_tiles_ref[j, 2])
+                    & (gy >= broad_tiles_ref[j, 1]) & (gy <= broad_tiles_ref[j, 3]))
+            return resolve(lambda row: broad_ch_ref[j, row],
+                           owner_base + j, live, st)
+
+        state = jax.lax.fori_loop(
+            0, jnp.minimum(nbroad_ref[0], n_broad_cap), broad_body, state)
+
+    # output order: (owner, z, order, uw, vw, iw, tex) per layer
+    perm = (1, 0, 2, 3, 4, 5, 6)
+    for li in range(2 if peel2 else 1):
+        for k, p in enumerate(perm):
+            out_refs[7 * li + k][...] = state[7 * li + p]
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "fb_w", "fb_h", "tile_w", "tile_h", "grid_w", "grid_h",
-        "chunk", "depth_state", "interpret", "debug_counts",
-        "lag2", "exit_while", "tiles_per_prog", "noexit",
-        "peel2",
+        "chunk", "depth_state", "interpret", "peel2",
     ),
 )
 def rasterize_visibility_pallas(
     binned: BinnedEntries,
     init_depth,   # f32 [fb_h, fb_w]
-    scissor,      # i32 [4]
+    scissor,      # i32 [4] in frame coordinates
+    row0=0,       # i32 [] frame row of the buffer's first row (a band)
     *,
     fb_w: int,
     fb_h: int,
@@ -531,127 +302,76 @@ def rasterize_visibility_pallas(
     tile_h: int,
     grid_w: int,
     grid_h: int,
-    chunk: int = 64,
+    chunk: int = 32,
     depth_state: DepthState,
     interpret: bool = False,
-    debug_counts: bool = False,
-    lag2: bool = False,
-    exit_while: bool = False,
-    tiles_per_prog: int = 1,
-    noexit: bool = False,
     peel2: bool = False,
 ):
-    """Pallas visibility resolve. Returns (VisibilityBuffer, overflow=0);
-    with peel2=True returns (VisibilityBuffer, layer2 VisibilityBuffer,
-    overflow=0) — the second-best (z, order) fragment per pixel for the
-    sequential-blend shade (ops/shade.py two-layer path).
+    """Visibility resolve. Returns (VisibilityBuffer, overflow=0); with
+    peel2=True returns (VisibilityBuffer, layer2 VisibilityBuffer,
+    overflow=0) — the depth-record holder before each pixel's winner, for
+    the sequential-blend shade (ops/shade.py two-layer path).
 
-    Unlike the XLA path there is no per-tile capacity (tiles stream their
-    whole segment), so tile overflow cannot occur.
-
-    debug_counts=True (instrumentation builds only) returns a third value:
-    an i32 [grid_h, grid_w] per-tile count of narrow entries actually
-    processed before the front-to-back early exit — for validating the
-    exit against the host-side walk sims (tools/exp_zwalk2.py).
-    """
-    if depth_state.compare_op not in (CompareOp.LESS, CompareOp.LESS_OR_EQUAL):
+    Unlike the XLA path there is no per-tile capacity (tiles walk their
+    whole segment), so tile overflow cannot occur.  ``interpret`` runs the
+    kernel through the Pallas interpreter (CPU tests); the caller decides
+    it (rendering/passes.py::visibility_backend)."""
+    if not kernel_supports(tile_w, tile_h, depth_state):
         raise NotImplementedError(
-            "pallas visibility supports LESS/LESS_OR_EQUAL; use exact mode"
-        )
-    if not (depth_state.test_enable and depth_state.write_enable):
-        raise NotImplementedError("pallas visibility needs depth test+write")
-
-    if tiles_per_prog > 1 and (grid_h % tiles_per_prog != 0 or debug_counts):
-        raise ValueError(
-            "tiles_per_prog must divide grid_h (and debug_counts needs 1)")
-    if peel2 and debug_counts:
-        raise ValueError("peel2 does not compose with debug_counts")
-    _check_broad_smem(binned.broad_channels_cm.shape[1],
-                      "rasterize_visibility_pallas")
-    e_cap = binned.entry_channels.shape[0]
-    if e_cap % chunk != 0:
-        raise ValueError(
-            f"entry_cap {e_cap} must be a multiple of chunk {chunk}")
+            "the visibility kernel needs power-of-two tile sides and depth "
+            "test+write with LESS/LESS_OR_EQUAL; use the XLA path or exact "
+            "mode")
 
     pad_h = grid_h * tile_h
     pad_w = grid_w * tile_w
     depth0 = jnp.pad(
         init_depth.astype(jnp.float32),
         ((0, pad_h - fb_h), (0, pad_w - fb_w)),
-        constant_values=jnp.float32(-jnp.inf),
+        constant_values=jnp.float32(-jnp.inf),  # nothing passes off-fb
     )
-
+    e_cap = binned.entry_channels.shape[0]
+    n_broad_cap = binned.broad_channels.shape[0]
     kernel = functools.partial(
         _visibility_kernel,
-        tile_w=tile_w, tile_h=tile_h, grid_w=grid_w,
-        chunk=chunk, e_cap=e_cap,
+        tile_w=tile_w, tile_h=tile_h, grid_w=grid_w, chunk=chunk,
+        e_cap=e_cap, n_broad_cap=n_broad_cap,
         # entry_tile is always sliced to the LOGICAL entry_cap
-        owner_base=binned.entry_tile.shape[0], depth_state=depth_state,
+        owner_base=binned.entry_tile.shape[0],
+        d16=depth_state.format == DepthFormat.D16_UNORM,
         le=depth_state.compare_op == CompareOp.LESS_OR_EQUAL,
-        debug_counts=debug_counts, lag2=lag2,
-        exit_while=exit_while,
-        tiles_per_prog=tiles_per_prog, noexit=noexit, peel2=peel2,
+        peel2=peel2,
     )
+    # the broad arrays keep one row even when the list is empty: pallas
+    # operands must not be zero-sized
+    broad_ch = binned.broad_channels
+    broad_tiles = binned.broad_tiles
+    if n_broad_cap == 0:
+        broad_ch = jnp.zeros((1, S.NUM_CHANNELS), jnp.float32)
+        broad_tiles = jnp.zeros((1, 4), jnp.int32)
 
-    tpp = tiles_per_prog
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(grid_h // tpp, grid_w),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),       # entries stay in HBM
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # broad channels (scalar reads)
-            pl.BlockSpec(memory_space=pltpu.SMEM),   # broad bboxes (f32)
-            pl.BlockSpec(
-                (tile_h * tpp, tile_w), lambda i, j, *_: (i, j),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile_h * tpp, tile_w), lambda i, j, *_: (i, j),
-                         memory_space=pltpu.VMEM)
-            for _ in range(14 if peel2 else 7)
-        ] + ([pl.BlockSpec((grid_h, grid_w), lambda i, j, *_: (0, 0),
-                           memory_space=pltpu.SMEM)]
-             if debug_counts else []),
-        scratch_shapes=[
-            pltpu.SMEM((2, chunk, 128), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-
-    # lane-pad to the physical 128-lane row (XLA fuses the pad into the
-    # binning gather's output write; the padded bytes exist in HBM anyway)
-    entries_padded = jnp.pad(
-        binned.entry_channels, ((0, 0), (0, 128 - S.NUM_CHANNELS))
-    )
-
+    whole = pl.BlockSpec(memory_space=pl.ANY)
+    tile_block = pl.BlockSpec((tile_h, tile_w), lambda i, j: (i, j))
+    layer = [jnp.int32] + [jnp.float32] * 5 + [jnp.int32]
     outs = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        # tiles are independent: let Mosaic split the grid across the
-        # TensorCores of a Megacore chip (default 'arbitrary' serializes
-        # the whole grid onto one core)
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel")),
-        out_shape=[
-            jax.ShapeDtypeStruct((pad_h, pad_w), jnp.int32),
-            jax.ShapeDtypeStruct((pad_h, pad_w), jnp.float32),
-            jax.ShapeDtypeStruct((pad_h, pad_w), jnp.float32),
-            jax.ShapeDtypeStruct((pad_h, pad_w), jnp.float32),
-            jax.ShapeDtypeStruct((pad_h, pad_w), jnp.float32),
-            jax.ShapeDtypeStruct((pad_h, pad_w), jnp.float32),
-            jax.ShapeDtypeStruct((pad_h, pad_w), jnp.int32),
-        ] * (2 if peel2 else 1)
-        + ([jax.ShapeDtypeStruct((grid_h, grid_w), jnp.int32)]
-           if debug_counts else []),
+        grid=(grid_h, grid_w),
+        in_specs=[whole] * 6 + [tile_block],
+        out_specs=[tile_block] * (14 if peel2 else 7),
+        out_shape=[jax.ShapeDtypeStruct((pad_h, pad_w), dt)
+                   for dt in layer * (2 if peel2 else 1)],
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=max(1, min(8, tile_w * tile_h // 64)), num_stages=1),
         interpret=interpret,
+        name="visibility_resolve",
     )(
         binned.tile_start,
-        scissor,
+        jnp.concatenate([scissor.astype(jnp.int32),
+                         jnp.reshape(row0, (1,)).astype(jnp.int32)]),
         binned.num_broad.reshape(1),
-        entries_padded,
-        binned.broad_channels_cm,
-        binned.broad_tiles.astype(jnp.float32).T,
+        binned.entry_channels,
+        broad_ch,
+        broad_tiles,
         depth0,
     )
 
@@ -666,10 +386,8 @@ def rasterize_visibility_pallas(
             tex=tex[:fb_h, :fb_w],
         )
 
+    zero = jnp.zeros((), jnp.int32)
     vis = crop_vis(*outs[:7])
-    nvis = list(outs[14 if peel2 else 7:])
     if peel2:
-        return vis, crop_vis(*outs[7:14]), jnp.zeros((), jnp.int32)
-    if debug_counts:
-        return vis, jnp.zeros((), jnp.int32), nvis[0]
-    return vis, jnp.zeros((), jnp.int32)
+        return vis, crop_vis(*outs[7:14]), zero
+    return vis, zero

@@ -3,7 +3,7 @@
 The reference binds one combined-image-sampler descriptor per mesh, all
 sharing a single linear / mirrored-repeat sampler
 (ref: src/render_device/builders.rs:300-320, src/resource/mod.rs:114-132).
-TPU-natively the "descriptor heap" is a flat texel arena in HBM plus per-slot
+Here the "descriptor heap" is a flat texel arena in device memory plus per-slot
 (offset, width, height) metadata; a descriptor set handle is just the slot id,
 so sampling is gather arithmetic and fully vmappable over pixels with
 per-pixel texture ids (bindless by construction).
@@ -25,9 +25,9 @@ def make_texel_quads(texels, offsets, widths, heights):
     (i, i+1, i+w, i+w+1), with the next-row half clamped to the same row at
     each texture's last row.
 
-    TPU gathers cost fixed latency per ROW, and the mirror function is
-    1-Lipschitz (adjacent taps land on neighboring-or-equal texels), so one
-    quad-row gather serves all four bilinear taps.
+    The mirror function is 1-Lipschitz (adjacent taps land on
+    neighboring-or-equal texels), so one quad-row gather serves all four
+    bilinear taps: one gathered row instead of four.
     """
     import numpy as np
 
@@ -52,7 +52,7 @@ def quad_derivatives(f):
     forward differences — the Vulkan fragment-quad semantics behind
     implicit-LOD sampling.  Odd framebuffer edges replicate (clamp).
     f: [H, W] -> (dfdx, dfdy), same shape.  Pure elementwise/reshape work:
-    the TPU pays no gathers for derivative computation.
+    no gathers for derivative computation.
     """
     H, W = f.shape[-2:]
     fp = jnp.pad(f, ((0, H % 2), (0, W % 2)), mode="edge")

@@ -3,18 +3,18 @@ function, as one fused jittable op.
 
 Replaces the reference's vertex shader + rasterizer front-end
 (ref: src/pipeline/glsl/common_pipeline.vert:16-19 — ``clip = projection *
-view_x_model * pos`` — and Vulkan fixed-function setup).  TPU-first design:
-every per-fragment quantity the rasterizer needs (3 edge functions, window
-depth, 1/w, u/w, v/w) is *affine in screen space*, so setup reduces each
-triangle to 7 plane equations; downstream coverage/interpolation for a whole
-pixel tile × triangle chunk is then a single MXU matmul against the plane
-coefficients (see ops/visibility.py).
+view_x_model * pos`` — and Vulkan fixed-function setup).  Every
+per-fragment quantity the rasterizer needs (3 edge functions, window depth,
+1/w, u/w, v/w) is *affine in screen space*, so setup reduces each triangle
+to 7 plane equations; downstream coverage/interpolation for a pixel tile is
+then a few multiply-adds per plane (see ops/visibility.py and
+ops/raster_pallas.py).
 
-Current fast-path clipping model: triangles with any vertex at w <= eps are
-culled rather than clipped (the oracle implements full Sutherland-Hodgman
-clipping; scenes that straddle the near plane will differ there — tracked as
-a known limitation for a later milestone). X/Y clipping is unnecessary:
-offscreen geometry is handled by the edge functions + scissor.
+Near-plane crossers are clipped upstream of setup (ops/clip.py); this
+module only drops
+triangles with any vertex at w <= eps, which after clipping are the ones
+entirely behind the camera.  X/Y clipping is unnecessary: offscreen
+geometry is handled by the edge functions + scissor.
 """
 
 from __future__ import annotations
@@ -29,19 +29,17 @@ import jax.numpy as jnp
 # Plane channels hold (A, B, C) with value(x, y) = A*x + B*y + C evaluated at
 # pixel centers.
 #
-# The table is deliberately <= 24 columns: XLA's TPU row gather has a cost
-# cliff above 24 lanes (measured: [E,24] ~15 ms vs [E,26] ~58 ms at E=1.4M),
-# and binning gathers one row per (tile, triangle) entry every frame — so the
-# texture slot and the three top-left-edge bits share one packed META column,
-# and the tile-bbox fields live in setup.tile_lo/tile_hi (binning builds its
-# own packed side table from those).
+# The table is deliberately 24 columns (96 B rows): binning gathers one row
+# per (tile, triangle) entry every frame and the visibility kernel reads each
+# entry's row, so the texture slot and the three top-left-edge bits share one
+# packed META column, and the tile-bbox fields live in setup.tile_lo/tile_hi
+# (binning builds its own packed side table from those).
 CH_E0 = 0    # edge 0 (opposite vertex 0) A,B,C at rows 0..2
 CH_E1 = 3
 # Edge 2 is DERIVED, not stored: the sign-normalized edge functions satisfy
 # e0 + e1 + e2 = |2A| identically, so both rasterizers reconstruct
-# e2 = (|2A| - e0) - e1 from the stored doubled area — 2 fewer SMEM scalar
-# loads per entry in the Pallas kernel, whose per-entry scalar loads are the
-# measured serial bottleneck (~70% of visibility time).  Rows CH_TWOA+1/+2
+# e2 = (|2A| - e0) - e1 from the stored doubled area — 2 fewer scalar loads
+# per entry in the visibility kernel.  Rows CH_TWOA+1/+2
 # are zero.  For small-integer coordinates (UI quads, test scenes) the f32
 # subtraction is exact, so e2 == 0 top-left ties are preserved bit-exactly;
 # at scene scale the absolute wobble is ~ulp(|2A|), far below the f32 noise
@@ -57,7 +55,7 @@ CH_ORDER = 22  # draw-order id (depth-tie arbitration + order map)
 CH_ZMIN = 23  # conservative window-z lower bound in D16 quanta (0..65535,
               # exact in f32) — binning's front-to-back in-tile sort key and
               # the visibility kernel's early-exit bound (_zmin_quantized)
-NUM_CHANNELS = 24  # multiple of 8 for TPU sublane alignment
+NUM_CHANNELS = 24
 
 # META packing: tex in the low bits, the three top-left-edge flags above.
 # Max value 7 * 2^18 + (2^18 - 1) < 2^24: exact in f32.
@@ -165,6 +163,8 @@ def setup_triangles(
                  # clipping passes the ORIGINAL order for split halves
     cull_mode=None,   # pipeline cull state (static; None = CullMode.NONE)
     front_face=None,
+    row0=0,      # i32 [] first framebuffer row of the tile grid (a band of
+                 # a sharded frame); planes stay in frame coordinates
 ) -> TriangleSetup:
     from tyleri_tpu.pipeline.state import CullMode, FrontFace
 
@@ -193,8 +193,8 @@ def setup_triangles(
     # Edge i (opposite vertex i) from a=(i+1)%3 to b=(i+2)%3:
     #   E_i(p) = ((py - ay)*dx - (px - ax)*dy) * sgn
     #   expanded: A = -dy*sgn, B = dx*sgn, C = (ax*dy - ay*dx)*sgn
-    # (slice+concat cyclic rotations: static-permutation fancy indexing
-    # lowers to per-row latency-bound gathers on TPU)
+    # (slice+concat cyclic rotations instead of static-permutation fancy
+    # indexing, which lowers to gathers)
     def rot1(a):
         return jnp.concatenate([a[:, 1:3], a[:, 0:1]], axis=1)
 
@@ -244,8 +244,8 @@ def setup_triangles(
     py1 = jnp.minimum(jnp.ceil(sy1f - 0.5).astype(jnp.int32), scy + sch - 1)
     tx0 = jnp.clip(px0 // tile_w, 0, grid_w - 1)
     tx1 = jnp.clip(px1 // tile_w, 0, grid_w - 1)
-    ty0 = jnp.clip(py0 // tile_h, 0, grid_h - 1)
-    ty1 = jnp.clip(py1 // tile_h, 0, grid_h - 1)
+    ty0 = jnp.clip((py0 - row0) // tile_h, 0, grid_h - 1)
+    ty1 = jnp.clip((py1 - row0) // tile_h, 0, grid_h - 1)
     on_screen = (px0 <= px1) & (py0 <= py1)
 
     valid = tri_valid & in_front & nondegenerate & on_screen
@@ -253,8 +253,8 @@ def setup_triangles(
     if keep is not None:
         valid = valid & keep
 
-    # stack in channel order (scatter-free: a scatter here costs ~300 ms at
-    # 2M triangles on TPU); columns must follow the CH_* layout above
+    # stack in channel order (scatter-free); columns must follow the CH_*
+    # layout above
     channels = jnp.stack([
         eA[:, 0], eB[:, 0], eC[:, 0],          # CH_E0
         eA[:, 1], eB[:, 1], eC[:, 1],          # CH_E1
@@ -341,8 +341,7 @@ def transform_corner_table(corner, draw, mvps):
     else:
         tri_mvp = mvps[draw]
     # broadcast-multiply + reduce instead of a T-batched einsum of tiny
-    # 4x4x3 matmuls: the batched dot_general lowers ~5x slower on TPU
-    # (25 -> 5 ms at 1M triangles); the reduction over 4 stays exact f32
+    # 4x4x3 matmuls; the reduction over 4 stays exact f32
     clip = jnp.sum(tri_mvp[:, None, :, :] * h[:, :, None, :], axis=-1)
     return clip, corner_uv
 

@@ -44,12 +44,13 @@ def blinn_phong(tex_rgba, n, p_world, light, eye):
     return jnp.concatenate([rgb, tex_rgba[..., 3:4]], axis=-1)
 
 
-def unproject_window(owner_valid, depth, viewport, inv_vp, fb_w, fb_h):
+def unproject_window(owner_valid, depth, viewport, inv_vp, fb_w, fb_h,
+                     row0=0):
     """Window (x+.5, y+.5, depth) -> world position via the inverse
     view-projection (the lit path's position reconstruction — no extra
-    per-entry channels needed)."""
+    per-entry channels needed).  ``row0``: frame row of the first row."""
     xc = (jnp.arange(fb_w, dtype=jnp.float32) + 0.5)[None, :]
-    yc = (jnp.arange(fb_h, dtype=jnp.float32) + 0.5)[:, None]
+    yc = ((row0 + jnp.arange(fb_h)).astype(jnp.float32) + 0.5)[:, None]
     vx, vy, vw, vh, dmin, dmax = (viewport[i] for i in range(6))
     ndc_x = (xc - vx) / vw * 2.0 - 1.0
     ndc_y = (yc - vy) / vh * 2.0 - 1.0
@@ -74,6 +75,7 @@ def shade_visibility(
                     # [4,4], eye [3], viewport [6]) — Blinn-Phong path
     aniso_taps=0,   # sampler anisotropy (builders.rs:300-320): >1 engages
                     # footprint-filtered sampling with this many taps
+    row0=0,         # frame row of the buffer's first row (a band)
 ):
     valid = vis.owner >= 0
     denom = jnp.where(vis.iw == 0, 1.0, vis.iw)
@@ -105,14 +107,15 @@ def shade_visibility(
         safe = jnp.clip(vis.owner, 0, nw_planes.shape[0] - 1)
         pl12 = nw_planes[safe]                       # [H, W, 12] row gathers
         xc = (jnp.arange(W, dtype=jnp.float32) + 0.5)[None, :]
-        yc = (jnp.arange(H, dtype=jnp.float32) + 0.5)[:, None]
+        yc = ((row0 + jnp.arange(H)).astype(jnp.float32) + 0.5)[:, None]
         # interpolated world normal: plane-evaluate (n_k / w) then * w
         n = jnp.stack([
             pl12[..., 3 * k] * xc + pl12[..., 3 * k + 1] * yc
             + pl12[..., 3 * k + 2]
             for k in range(3)
         ], axis=-1) / denom[..., None]
-        p_world = unproject_window(valid, vis.depth, viewport, inv_vp, W, H)
+        p_world = unproject_window(valid, vis.depth, viewport, inv_vp, W, H,
+                                   row0)
         src = blinn_phong(src, n, p_world, light, eye)
     out = apply_blend(blend_state, src, dst_color)
     return jnp.where(valid[..., None], out, dst_color)

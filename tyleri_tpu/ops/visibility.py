@@ -1,6 +1,6 @@
 """Visibility-buffer rasterization: per-tile depth resolve over binned entries.
 
-This is the TPU-first replacement of the per-fragment depth-tested pipeline
+This is the replacement of the per-fragment depth-tested pipeline
 (ref pipelines' LESS_OR_EQUAL depth test + write, src/pipeline/
 common_pipeline.rs:107-116).  Instead of scattering fragments, every tile
 resolves the *visible* entry per pixel (a visibility buffer); texture lookup
@@ -18,7 +18,7 @@ tests).
 
 This module is the pure-XLA implementation (vmap over tiles); it is the
 functional spec for the Pallas kernel in ops/raster_pallas.py and the default
-path on CPU.
+path on the CPU.
 """
 
 from __future__ import annotations
@@ -45,10 +45,10 @@ class VisibilityBuffer(NamedTuple):
     tex: jax.Array    # i32 [H, W]; winner texture slot
 
 
-def attribute_maps(owner, all_channels, fb_w, fb_h):
+def attribute_maps(owner, all_channels, fb_w, fb_h, row0=0):
     """Reconstruct winner shading attributes from the channel table (the
     XLA visibility path uses this; the Pallas kernel carries them directly).
-    """
+    ``row0`` is the frame row of the buffer's first row (a band)."""
     valid = owner >= 0
     safe = jnp.clip(owner, 0, all_channels.shape[0] - 1)
     rows = jnp.array(
@@ -61,7 +61,7 @@ def attribute_maps(owner, all_channels, fb_w, fb_h):
     table = all_channels[:, rows]               # [E, 10] static column slice
     ch = table[safe]                            # [H, W, 10] row gathers
     xc = (jnp.arange(fb_w, dtype=jnp.float32) + 0.5)[None, :]
-    yc = (jnp.arange(fb_h, dtype=jnp.float32) + 0.5)[:, None]
+    yc = ((row0 + jnp.arange(fb_h)).astype(jnp.float32) + 0.5)[:, None]
 
     def plane(i):
         return ch[..., i] * xc + ch[..., i + 1] * yc + ch[..., i + 2]
@@ -228,6 +228,7 @@ def rasterize_visibility(
     cap_per_tile: int,
     chunk: int = 32,
     depth_state: DepthState,
+    row0=0,       # i32 [] frame row of the buffer's first row (a band)
 ):
     """Resolve visibility for all tiles. Returns (VisibilityBuffer, overflow)."""
     ntiles = grid_w * grid_h
@@ -257,7 +258,8 @@ def rasterize_visibility(
     def per_tile(tile_idx, tlist, zinit):
         tx = tile_idx % grid_w
         ty = tile_idx // grid_w
-        ys = (ty * tile_h + jnp.arange(tile_h, dtype=jnp.int32))[:, None]
+        ys = (row0 + ty * tile_h
+              + jnp.arange(tile_h, dtype=jnp.int32))[:, None]
         xs = (tx * tile_w + jnp.arange(tile_w, dtype=jnp.int32))[None, :]
         xi = jnp.broadcast_to(xs, (tile_h, tile_w)).reshape(-1)
         yi = jnp.broadcast_to(ys, (tile_h, tile_w)).reshape(-1)
@@ -328,7 +330,7 @@ def rasterize_visibility(
         )
 
     owner = untile(ot)
-    uw, vw, iw, tex = attribute_maps(owner, all_ch, fb_w, fb_h)
+    uw, vw, iw, tex = attribute_maps(owner, all_ch, fb_w, fb_h, row0)
     vis = VisibilityBuffer(owner=owner, depth=untile(zt), order=untile(rt),
                            uw=uw, vw=vw, iw=iw, tex=tex)
     return vis, overflow

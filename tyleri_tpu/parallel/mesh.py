@@ -1,7 +1,7 @@
 """Device-mesh construction for multi-chip rendering.
 
 The reference is strictly single-GPU; its only parallelism is threads over
-draw recording (SURVEY §2 "Parallelism").  The TPU-native scaling axes are:
+draw recording (SURVEY §2 "Parallelism").  The scaling axes are:
 
 * ``tiles`` — sort-first image parallelism: each device owns a horizontal
   band of the framebuffer tile grid (the classic sort-first taxonomy; the
@@ -11,7 +11,7 @@ draw recording (SURVEY §2 "Parallelism").  The TPU-native scaling axes are:
   round-robin ParallelGroup partitioning of the reference mapped onto
   devices instead of threads, ref: src/render_objects/mod.rs:5-30).
 
-Both axes combine into a 2-D mesh (draws, tiles); collectives ride ICI:
+Both axes combine into a 2-D mesh (draws, tiles); collectives ride NVLink:
 the composite is pmin/pmax/psum reductions over the ``draws`` axis whose
 per-device traffic is O(band size), independent of the draws-axis length.
 """

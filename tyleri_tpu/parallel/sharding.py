@@ -3,7 +3,7 @@
 Sort-first + sort-last hybrid (see parallel/mesh.py): every device renders
 the draw subset of its ``draws`` coordinate into the framebuffer band of its
 ``tiles`` coordinate, then bands are composited across the ``draws`` axis by
-depth — pmin/pmax/psum reductions over ICI whose per-device traffic is
+depth — pmin/pmax/psum reductions over the interconnect whose per-device traffic is
 independent of the ``draws`` axis size (the depth resolve is associative, so
 it needs no gather).  Geometry/scene inputs are replicated; the output
 framebuffer is sharded over its row axis.
@@ -37,7 +37,7 @@ def _band_plan(plan: FramePlan, n_tile_shards: int) -> FramePlan:
     (``band_h * n - fb_h`` < n rows, rendered clear because the window
     scissor — global-height-sized — clips them).  The raster kernels
     already handle arbitrary band heights (they pad to the tile grid
-    internally and crop, ops/raster_pallas.py:576+656)."""
+    internally and crop)."""
     band_h = -(-plan.raster.fb_h // n_tile_shards)
     return dataclasses.replace(
         plan, raster=dataclasses.replace(plan.raster, fb_h=band_h)

@@ -3,7 +3,7 @@ pipelines, expressed as hashable dataclasses that parameterize the kernels.
 
 The reference bakes this state into two Vulkan graphics pipelines
 (ref: src/pipeline/common_pipeline.rs:31-139, src/pipeline/ui_pipeline.rs:29-135).
-On TPU there is no fixed-function hardware: the state below is consumed by the
+Here there is no fixed-function hardware: the state below is consumed by the
 raster/blend kernels in ``tyleri_tpu.ops`` and is *static* under jit (each
 distinct PipelineState compiles its own executable — the analog of a Vulkan
 pipeline object; the XLA compilation cache is the pipeline cache).

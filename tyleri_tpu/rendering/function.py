@@ -1,7 +1,7 @@
 """RenderingFunction protocol (ref: src/rendering_function/mod.rs:14-26).
 
 The reference's trait takes a device + swapchain at construction and records
-one frame into a primary command buffer.  The TPU analog: construction
+one frame into a primary command buffer.  The analog here: construction
 specializes/compiles the frame program for a target's resolution, and
 ``record`` turns a RenderScene into one jitted frame execution returning the
 framebuffer (the "executable command buffer" is the XLA executable; async
@@ -28,7 +28,6 @@ class Frame(NamedTuple):
                               # consumed by the cross-device depth composite
     clip_overflow: jax.Array = None  # i32 [] near-clip splits beyond capacity
     clip_crossings: jax.Array = None  # i32 [] near-plane crossings observed
-                                      # (adaptive clip-skip feedback)
     bin_demand: jax.Array = None      # i32 [] max live narrow triangles over
                                       # the frame's passes (dense-slot
                                       # demand; adaptive valid_cap feedback)
@@ -41,8 +40,7 @@ class Frame(NamedTuple):
     color_u8: jax.Array = None        # u8 [H, W, 4] presentation image,
                                       # quantized INSIDE the frame program
                                       # (plan.present_u8) — one launch per
-                                      # frame instead of two matters on
-                                      # high-latency remote backends
+                                      # frame instead of two
 
 
 class RenderingFunction(Protocol):

@@ -15,13 +15,20 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from tyleri_tpu.ops import raster_pallas
 from tyleri_tpu.ops.binning import bin_triangles
-from tyleri_tpu.ops.clip import near_clip_triangles, near_cull_triangles
+from tyleri_tpu.ops.clip import near_clip_triangles
 from tyleri_tpu.ops.raster_exact import rasterize_exact
 from tyleri_tpu.ops.setup import setup_triangles
 from tyleri_tpu.ops.shade import shade_visibility
 from tyleri_tpu.ops.visibility import rasterize_visibility
 from tyleri_tpu.pipeline.state import PipelineState
+
+
+# Screen tile of binning and of the visibility kernel (one kernel program
+# per tile): 256 pixels fill whole warps.  See PERF.md for the tile sweep.
+TILE_W = 16
+TILE_H = 16
 
 
 def _cdiv(a, b):
@@ -62,50 +69,18 @@ class RasterPlan:
     # culled/invalid rows past this bound so they stop riding the big
     # expansion sort and the channel gather (0 = one slot per setup row)
     valid_cap: int = 0
-    # near-plane clipping machinery: True = full split/rewrite pass;
-    # False = the cheap cull-and-report pass (adaptive: occupancy feedback
-    # disables it after crossing-free frames, re-enables on any crossing —
-    # the full pass costs ~9 ms/frame at 1M tris even with zero crossings)
-    near_clip: bool = True
-    # fused transform+cull+setup Pallas kernel (ops/setup_pallas.py): used
-    # when near_clip is False (cull semantics) and the plan supports it;
-    # "auto" = on TPU, True forces (interpret off-TPU), False disables
-    fused_setup: object = "auto"
     exact: bool = False  # ordered per-fragment blending (slow, parity mode)
-    # visibility backend: "auto" = Pallas kernel on TPU / XLA elsewhere;
-    # True forces Pallas (interpret-mode off-TPU), False forces XLA
+    # visibility backend (visibility_backend): "auto" = the compiled
+    # kernel on a GPU, the XLA path elsewhere; True = the kernel (compiled
+    # on a GPU, interpreted on the CPU, for tests); False = the XLA path
     pallas: object = "auto"
-    # publish the early-exit threshold one chunk boundary late (still an
-    # upper bound, so still exact): pipelines the per-chunk vector->scalar
-    # zmax crossing behind a chunk of entry work at the cost of up to one
-    # extra chunk of visits per tile
-    exit_lag2: bool = False
-    # chunk loop structure: lax.while_loop exits the loop entirely at the
-    # front-to-back cutoff (dead chunks never iterate) instead of running
-    # inert fori iterations to the segment end
-    exit_while: bool = False
-    # drop the front-to-back early-exit gate: no per-chunk zmin scalar
-    # read, no tile-zmax vector->scalar reduce.  At high winner density
-    # the gate's per-chunk serialization can cost more than the skipped
-    # entries save (round-3 standalone: exit-free 43.8 ms vs 47.6)
-    noexit: bool = False
-    # two-layer depth peel (Pallas path): the kernel carries the top-2
+    # two-layer depth peel (kernel path): the kernel carries the top-2
     # (z, order) fragments per pixel and the deferred shade applies the
     # blend equation over layer2-then-layer1 — per-fragment sequential
     # blending (ref common_pipeline.rs:117-131) to within the third
     # layer's contribution, which the SrcColor/OneMinusDstColor mesh
     # blend damps geometrically (validate: tools/measure_blend_deviation)
     peel2: bool = False
-    # vertically-adjacent tiles resolved per grid program (divides the
-    # per-program fixed cost — measured ~10 us/program on empty segments);
-    # must divide grid_h or it silently falls back to 1
-    tiles_per_prog: int = 1
-    # (Round-4 note: two alternative kernel formulations — the
-    # fragment-centric cells mode and the sublane-batched kernel — were
-    # built, measured a production LOSS on their target config
-    # (BASELINE.md round-4 A/B: cells 10.45 / sublane 10.47 vs base
-    # 11.96 FPS), and DELETED; see git history before 2026-08-19 for
-    # the implementations.)
     # sampler anisotropy (builders.rs:300-320 max_sampler_anisotropy): >1
     # engages footprint-filtered sampling in the deferred shade with this
     # many bilinear taps along the footprint's major axis.  Set from
@@ -125,82 +100,41 @@ class RasterPlan:
     @staticmethod
     def for_scene(fb_w: int, fb_h: int, tri_capacity: int, **kw) -> "RasterPlan":
         """Heuristic capacities: ~2 tiles per small triangle on average.
-        On TPU the tile is (8, 128) px — one VPU native vector — for the
-        Pallas kernel; elsewhere small square tiles suit the XLA path."""
-        import jax
-
+        The tile shape is chosen here, once, for every backend: binning's
+        tile grid must equal the visibility kernel's tile."""
         entry_cap = max(1024, 2 * tri_capacity)
         cap_per_tile = max(128, min(4096, entry_cap // 8))
-        # perf A/B env knobs (tools/ab_flags.py): plans built through
-        # for_scene flip kernel flags without a code edit
-        import os
-
-        if os.environ.get("TYLERI_LAG2"):
-            kw.setdefault("exit_lag2",
-                          os.environ["TYLERI_LAG2"] not in ("0", ""))
-        if os.environ.get("TYLERI_WHILE"):
-            kw.setdefault("exit_while",
-                          os.environ["TYLERI_WHILE"] not in ("0", ""))
-        if os.environ.get("TYLERI_TPP"):
-            kw.setdefault("tiles_per_prog",
-                          max(int(os.environ["TYLERI_TPP"]), 1))
-        if os.environ.get("TYLERI_NOEXIT"):
-            kw.setdefault("noexit",
-                          os.environ["TYLERI_NOEXIT"] not in ("0", ""))
-        if os.environ.get("TYLERI_PEEL2"):
-            kw.setdefault("peel2",
-                          os.environ["TYLERI_PEEL2"] not in ("0", ""))
-        if jax.default_backend() == "tpu":
-            kw.setdefault("tile_w", 128)
-            # 16 rows: with the ROW-major entry table (contiguous SMEM
-            # scalar loads per entry) the sweep on sponza-1M measures
-            # 8/16/32-row tiles at 56/42/57 ms — scalar loads got ~2x
-            # cheaper than the old channel-major layout, so the optimum
-            # moved back to smaller tiles (less vector work per entry).
-            # chunk 128: the SMEM staging buffer is [2, chunk, 128] f32
-            # (entry rows lane-padded for DMA legality) = 128 KB
-            kw.setdefault("tile_h", 16)
-            kw.setdefault("chunk", 128)
+        kw.setdefault("tile_w", TILE_W)
+        kw.setdefault("tile_h", TILE_H)
         return RasterPlan(
             fb_w=fb_w, fb_h=fb_h, entry_cap=entry_cap,
             cap_per_tile=cap_per_tile, **kw,
         )
 
 
-def _use_pallas(plan: RasterPlan, state: PipelineState) -> bool:
-    """Pick the visibility backend. The Pallas kernel needs the standard
-    depth config (test+write, LESS/LESS_OR_EQUAL) and hardware-shaped
-    tiles; anything else routes to the XLA implementation."""
-    from tyleri_tpu.pipeline.state import CompareOp
+def visibility_backend(plan: RasterPlan, state: PipelineState) -> str:
+    """The one backend decision for the visibility resolve:
 
-    supported = (
-        state.depth.test_enable
-        and state.depth.write_enable
-        and state.depth.compare_op in (CompareOp.LESS, CompareOp.LESS_OR_EQUAL)
-        and plan.tile_w % 128 == 0
-        and plan.chunk % 128 == 0
-        and plan.entry_cap % plan.chunk == 0
-    )
-    if plan.pallas is True:
-        if not supported:
-            raise ValueError(
-                "RasterPlan.pallas=True but the plan/pipeline-state is not "
-                "supported by the Pallas kernel (needs depth test+write with "
-                "LESS/LESS_OR_EQUAL, tile_w % 128 == 0, entry_cap % chunk == 0)"
-            )
-        return True
-    if plan.pallas == "auto":
-        import jax
+    * "kernel"    — the compiled Triton-route kernel (ops/raster_pallas.py);
+                    every GPU frame whose pipeline state the kernel covers
+    * "interpret" — the same kernel through the Pallas interpreter; only
+                    when ``plan.pallas is True`` off the GPU (CPU tests)
+    * "xla"       — ops/visibility.py: the CPU default, ``pallas=False``,
+                    and depth states outside the kernel's envelope
 
-        return supported and jax.default_backend() == "tpu"
-    return False
-
-
-def _setup_dims(plan: RasterPlan, state: PipelineState) -> dict:
-    """Setup grid (tile geometry) shared by mesh_pass and mesh_pass_fused
-    so the two paths cannot diverge."""
-    return dict(tile_w=plan.tile_w, tile_h=plan.tile_h,
-                grid_w=plan.grid_w, grid_h=plan.grid_h)
+    A GPU never interprets: there the kernel compiles or the frame fails."""
+    supported = raster_pallas.kernel_supports(
+        plan.tile_w, plan.tile_h, state.depth)
+    if plan.pallas is True and not supported:
+        raise ValueError(
+            "RasterPlan.pallas=True but the plan/pipeline-state is outside "
+            "the visibility kernel (needs power-of-two tile sides and depth "
+            "test+write with LESS/LESS_OR_EQUAL)")
+    if plan.pallas is False or not supported:
+        return "xla"
+    if jax.default_backend() == "gpu":
+        return "kernel"
+    return "interpret" if plan.pallas is True else "xla"
 
 
 class PassStats(NamedTuple):
@@ -229,192 +163,6 @@ class PassStats(NamedTuple):
                                     # fit feedback)
 
 
-def use_fused_setup(plan: RasterPlan, draw_cap: int) -> bool:
-    """Host-side choice of the fused transform+cull+setup Pallas kernel.
-    Requires cull semantics (near_clip off — the adaptive feedback in
-    ForwardRenderingFunction turns it off after crossing-free frames)."""
-    from tyleri_tpu.ops import setup_pallas
-
-    # near-clip on = the full split/rewrite pass is required; the fused
-    # kernel only implements cull semantics, so it simply does not engage
-    # (the adaptive feedback turns near_clip off on crossing-free frames)
-    if plan.exact or plan.near_clip:
-        return False
-    supported = draw_cap <= 64 and setup_pallas.supports(plan)
-    if plan.fused_setup is True:
-        if not supported:
-            raise ValueError(
-                "RasterPlan.fused_setup=True needs pow2 tiles, a packable "
-                "grid and draw_cap<=64"
-            )
-        return True
-    if plan.fused_setup == "auto":
-        import jax
-
-        return supported and jax.default_backend() == "tpu"
-    return False
-
-
-def use_fused_setup_clip(plan: RasterPlan, draw_cap: int) -> bool:
-    """Host-side choice of the HYBRID fused setup on CLIPPING frames:
-    the fused kernel still processes every triangle (cull + per-triangle
-    crossing flags) and only the flagged subset (<= clip_cap rows)
-    re-runs transform+clip+setup in XLA and splices into the kernel's
-    table (_fused_clip_subset).  A scene whose camera path genuinely
-    crosses the near plane then pays ~the cull-mode kernel price plus an
-    O(N) mask scan + O(clip_cap) clip math, instead of the full-table
-    XLA setup (~10 ms at 1M triangles) — the round-5b production trace
-    showed sponza's orbit keeps near_clip on, so the fused fast path
-    never engaged."""
-    from tyleri_tpu.ops import setup_pallas
-
-    if plan.exact or not plan.near_clip:
-        return False
-    supported = draw_cap <= 64 and setup_pallas.supports(plan)
-    if plan.fused_setup is True:
-        return supported
-    if plan.fused_setup == "auto":
-        import jax
-
-        return supported and jax.default_backend() == "tpu"
-    return False
-
-
-def _fused_clip_subset(su, crossed, clip_tables, mvps, viewport, scissor,
-                       state, clip_cap: int, dims):
-    """Hybrid near-clip: the fused kernel culled + flagged the near-plane
-    crossing triangles (ops/setup_pallas.py stage 1 — clip.py crossing
-    semantics, including the camera/draw-mod/texture validity gates);
-    re-run transform -> clip -> setup for JUST that subset in XLA and
-    splice the results into the kernel's setup table, using clip.py's
-    exact layout: the in-place rewritten half overwrites the parent row,
-    the quad's second half appends in clip_cap extra rows.  Row count
-    becomes N + clip_cap (= the XLA path's T + clip_cap budget), both
-    halves carry the PARENT's draw order (z-tie semantics unchanged),
-    and crossings beyond clip_cap are reported as clip overflow (never
-    rendered unclipped).  Cost: O(N) mask cumsum + O(clip_cap) gathers,
-    clip math, setup and row scatters."""
-    from tyleri_tpu.ops.clip import clip_work_set
-
-    corners, tri_draw, tri_tex = clip_tables
-    T = corners.shape[0]
-    N = su.channels.shape[0]
-    X = int(clip_cap)
-
-    ccum = jnp.cumsum(crossed.astype(jnp.int32))
-    n_cross = ccum[-1]
-    # inverse lookup by searchsorted (clip.py rationale): slot k holds the
-    # k-th crossing triangle; X is small, so binary search is ~free
-    src = jnp.searchsorted(
-        ccum, jnp.arange(1, X + 1, dtype=jnp.int32), side="left"
-    ).astype(jnp.int32)
-    live = src < min(T, N)   # padded kernel rows (tex < 0) never cross
-    src_c = jnp.clip(src, 0, max(T - 1, 0))
-
-    sub = corners[src_c]                        # [X, 3, 5+] row gathers
-    pos = sub[..., :3]
-    uvs = sub[..., 3:5]
-    tex = jnp.where(live, tri_tex[src_c], -1)
-    m = mvps[jnp.clip(tri_draw[src_c], 0, mvps.shape[0] - 1)]  # [X, 16]
-
-    # Transform with the SAME multiply-add chain as the kernel
-    # (_transform_kernel::transform): identical f32 expression order =>
-    # identical bits => the subset's inside/outside case decisions agree
-    # with the kernel's crossing flags even on borderline corners.
-    def tform(p):  # p [X, 3] one corner's positions
-        x, y, z = p[:, 0], p[:, 1], p[:, 2]
-        return jnp.stack(
-            [m[:, 4 * j] * x + m[:, 4 * j + 1] * y
-             + m[:, 4 * j + 2] * z + m[:, 4 * j + 3]
-             for j in range(4)],
-            axis=-1,
-        )
-
-    cr0 = jnp.stack([tform(pos[:, k]) for k in range(3)], axis=1)  # [X,3,4]
-    main_c, main_u, extra_c, extra_u, nin = clip_work_set(cr0, uvs)
-
-    order = src_c.astype(jnp.float32)   # both halves keep the parent order
-    su_sub = setup_triangles(
-        jnp.concatenate([main_c, extra_c]),
-        jnp.concatenate([main_u, extra_u]),
-        jnp.concatenate([tex, tex]),
-        jnp.concatenate([live & (nin > 0), live & (nin == 2)]),
-        viewport, scissor,
-        tile_w=dims["tile_w"], tile_h=dims["tile_h"],
-        grid_w=dims["grid_w"], grid_h=dims["grid_h"],
-        order=jnp.concatenate([order, order]),
-        cull_mode=state.raster.cull_mode,
-        front_face=state.raster.front_face,
-    )
-    # splice: the kernel invalidated the crossing rows, so the main halves
-    # (with setup-level validity: degenerate/backface/scissor culls apply)
-    # overwrite their parent rows; extras append.  lam rows stay zero —
-    # the binned path never reads lam (the lit path does not take the
-    # fused kernel).
-    scat = jnp.where(live, src_c, N)    # dead slots drop
-    su = su._replace(
-        channels=jnp.concatenate(
-            [su.channels.at[scat].set(su_sub.channels[:X], mode="drop"),
-             su_sub.channels[X:]]),
-        valid=jnp.concatenate(
-            [su.valid.at[scat].set(su_sub.valid[:X], mode="drop"),
-             su_sub.valid[X:]]),
-        tile_lo=jnp.concatenate(
-            [su.tile_lo.at[scat].set(su_sub.tile_lo[:X], mode="drop"),
-             su_sub.tile_lo[X:]]),
-        tile_hi=jnp.concatenate(
-            [su.tile_hi.at[scat].set(su_sub.tile_hi[:X], mode="drop"),
-             su_sub.tile_hi[X:]]),
-        lam=jnp.concatenate([su.lam, jnp.zeros((X, 3, 3), jnp.float32)]),
-    )
-    overflow = jnp.maximum(n_cross - X, 0).astype(jnp.int32)
-    return su, overflow
-
-
-def mesh_pass_fused(
-    plan: RasterPlan,
-    state: PipelineState,
-    color, depth,
-    corner18,    # f32 [18, N/128, 128] field-major corner table
-    mvps,        # f32 [D, 16] per-draw view_proj @ model
-    cam_valid,   # bool []
-    viewport, scissor,
-    texels, tex_offset, tex_width, tex_height,
-    draw_mod=None,
-    clip_tables=None,   # (corners [T,3,5+], tri_draw [T], tri_tex [T]) —
-                        # engages the hybrid near-clip subset path
-    clip_cap: int = 0,
-):
-    """mesh_pass via the fused setup kernel.  Without clip_tables: cull
-    semantics + crossing telemetry (the frame plan re-enables real
-    clipping on any crossing).  With clip_tables + clip_cap: the hybrid
-    near-clip path — full clip semantics at ~cull-kernel cost
-    (_fused_clip_subset)."""
-    import jax
-
-    from tyleri_tpu.ops.setup_pallas import fused_setup
-
-    dims = _setup_dims(plan, state)
-    su, crossings, crossed = fused_setup(
-        corner18, mvps, cam_valid, viewport, scissor, draw_mod,
-        draw_cap=mvps.shape[0],
-        cull_mode=state.raster.cull_mode,
-        front_face=state.raster.front_face,
-        interpret=jax.default_backend() != "tpu",
-        **dims,
-    )
-    clip_overflow = jnp.zeros((), jnp.int32)
-    if clip_tables is not None and clip_cap > 0:
-        su, clip_overflow = _fused_clip_subset(
-            su, crossed, clip_tables, mvps, viewport, scissor,
-            state, clip_cap, dims,
-        )
-    return _raster_binned(plan, state, color, depth, su, viewport, scissor,
-                          texels, tex_offset, tex_width, tex_height,
-                          clip_overflow=clip_overflow,
-                          clip_crossings=crossings)
-
-
 def mesh_pass(
     plan: RasterPlan,
     state: PipelineState,
@@ -429,6 +177,11 @@ def mesh_pass(
     texels, tex_offset, tex_width, tex_height,
     normals=None,     # f32 [T, 3, 3] world-space corner normals (lit path)
     lit_params=None,  # (light [12], inv_vp [4, 4], eye [3]) (lit path)
+    row0=0,           # i32 [] frame row of the framebuffer's first row: a
+                      # band of a sharded frame keeps frame coordinates
+                      # (viewport, scissor), so its planes are bit-equal to
+                      # the whole frame's (exact mode takes band-local
+                      # coordinates instead)
 ):
     """Draw a batch of mesh triangles.
 
@@ -444,12 +197,8 @@ def mesh_pass(
     # normals ride the uv slot through the clip pass (its rotate/lerp
     # machinery is shape-agnostic on the attribute dim)
     attrs = jnp.concatenate([uv, normals], axis=-1) if lit else uv
-    if plan.near_clip:
-        ct = near_clip_triangles(
-            clip, attrs, tex_id, tri_valid, extra_cap=plan.clip_cap)
-    else:
-        ct = near_cull_triangles(
-            clip, attrs, tex_id, tri_valid, extra_cap=plan.clip_cap)
+    ct = near_clip_triangles(
+        clip, attrs, tex_id, tri_valid, extra_cap=plan.clip_cap)
     ct_uv = ct.uv[..., :2] if lit else ct.uv
 
     if plan.exact:
@@ -463,14 +212,14 @@ def mesh_pass(
                 PassStats(zero, zero, ct.overflow, ct.crossings, zero, zero),
                 None)
 
-    dims = _setup_dims(plan, state)
     su = setup_triangles(
         ct.clip, ct_uv, ct.tex_id, ct.valid, viewport, scissor,
-        tile_w=dims["tile_w"], tile_h=dims["tile_h"],
-        grid_w=dims["grid_w"], grid_h=dims["grid_h"],
+        tile_w=plan.tile_w, tile_h=plan.tile_h,
+        grid_w=plan.grid_w, grid_h=plan.grid_h,
         order=ct.order,
         cull_mode=state.raster.cull_mode,
         front_face=state.raster.front_face,
+        row0=row0,
     )
     extra = None
     if lit:
@@ -489,7 +238,7 @@ def mesh_pass(
                           texels, tex_offset, tex_width, tex_height,
                           clip_overflow=ct.overflow,
                           clip_crossings=ct.crossings,
-                          extra=extra, lit_params=lit_params)
+                          extra=extra, lit_params=lit_params, row0=row0)
 
 
 def _raster_binned(
@@ -501,10 +250,10 @@ def _raster_binned(
     texels, tex_offset, tex_width, tex_height,
     *,
     clip_overflow, clip_crossings,
-    extra=None, lit_params=None,
+    extra=None, lit_params=None, row0=0,
 ):
-    use_pallas = _use_pallas(plan, state)
-    peel2 = bool(plan.peel2) and use_pallas
+    backend = visibility_backend(plan, state)
+    peel2 = bool(plan.peel2) and backend != "xla"
     binned = bin_triangles(
         su, extra,
         grid_w=plan.grid_w, grid_h=plan.grid_h,
@@ -516,40 +265,30 @@ def _raster_binned(
         spill_level_caps=plan.spill_level_caps,
     )
     vis2 = None
-    if use_pallas:
-        import jax
-
-        from tyleri_tpu.ops.raster_pallas import rasterize_visibility_pallas
-
-        out = rasterize_visibility_pallas(
-            binned, depth, scissor,
-            fb_w=plan.fb_w, fb_h=plan.fb_h,
-            tile_w=plan.tile_w, tile_h=plan.tile_h,
-            grid_w=plan.grid_w, grid_h=plan.grid_h,
-            chunk=plan.chunk,
-            depth_state=state.depth,
-            interpret=jax.default_backend() != "tpu",
-            lag2=bool(plan.exit_lag2),
-            exit_while=bool(plan.exit_while),
-            noexit=bool(plan.noexit),
-            peel2=peel2,
-            tiles_per_prog=(plan.tiles_per_prog
-                            if plan.grid_h % plan.tiles_per_prog == 0
-                            else 1),
-        )
-        if peel2:
-            vis, vis2, tile_overflow = out
-        else:
-            vis, tile_overflow = out
-    else:
+    if backend == "xla":
         vis, tile_overflow = rasterize_visibility(
-            binned, depth, scissor,
+            binned, depth, scissor, row0=row0,
             fb_w=plan.fb_w, fb_h=plan.fb_h,
             tile_w=plan.tile_w, tile_h=plan.tile_h,
             grid_w=plan.grid_w, grid_h=plan.grid_h,
             cap_per_tile=plan.cap_per_tile, chunk=plan.chunk,
             depth_state=state.depth,
         )
+    else:
+        out = raster_pallas.rasterize_visibility_pallas(
+            binned, depth, scissor, row0,
+            fb_w=plan.fb_w, fb_h=plan.fb_h,
+            tile_w=plan.tile_w, tile_h=plan.tile_h,
+            grid_w=plan.grid_w, grid_h=plan.grid_h,
+            chunk=plan.chunk,
+            depth_state=state.depth,
+            interpret=backend == "interpret",
+            peel2=peel2,
+        )
+        if peel2:
+            vis, vis2, tile_overflow = out
+        else:
+            vis, tile_overflow = out
     lit = None
     if extra is not None and lit_params is not None:
         light, inv_vp, eye = lit_params
@@ -561,11 +300,11 @@ def _raster_binned(
         # the last two steps of the true per-fragment blend chain
         color = shade_visibility(
             vis2, texels, tex_offset, tex_width, tex_height, state.blend,
-            color, lit=lit, aniso_taps=plan.aniso_taps,
+            color, lit=lit, aniso_taps=plan.aniso_taps, row0=row0,
         )
     color = shade_visibility(
         vis, texels, tex_offset, tex_width, tex_height, state.blend, color,
-        lit=lit, aniso_taps=plan.aniso_taps,
+        lit=lit, aniso_taps=plan.aniso_taps, row0=row0,
     )
     depth = vis.depth if state.depth.write_enable else depth
     pass_order = jnp.where(vis.owner >= 0, vis.order, -1.0)

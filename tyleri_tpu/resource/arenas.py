@@ -4,7 +4,7 @@ The reference suballocates every static mesh out of two global bindless
 arena buffers (``BindlessBufferAllocator<Vertex>`` / ``<u32>``, ref:
 src/resource/resource_allocator.rs:15-16,31-44) and streams per-frame UI
 geometry through host-visible ``VariableLengthBuffer``s (ref:
-src/render_scene.rs:20-21,64-107).  TPU-natively an arena is a
+src/render_scene.rs:20-21,64-107).  Here an arena is a
 struct-of-arrays numpy staging area plus a cached device snapshot: writers
 fill staging directly (the reference's writer-callback upload pattern, ref:
 src/resource/mod.rs:31-58), and the snapshot is re-uploaded lazily on next

@@ -2,8 +2,8 @@
 
 The reference probes Vulkan memory types for five resource classes by
 building dummy resources and requiring a 1 GiB heap
-(ref: src/resource/resource_info.rs:13-129).  On TPU the memory spaces are
-HBM (device), host RAM (staging), and the preallocated-arena budgets; this
+(ref: src/resource/resource_info.rs:13-129).  Here the memory spaces are
+device memory, host RAM (staging), and the preallocated-arena budgets; this
 module reports what is available and which space each resource class uses,
 and raises early when a requested arena exceeds budget — the analog of
 ``try_memory_type`` returning None.

@@ -1,8 +1,8 @@
 """Texture arena: the descriptor-heap analog.
 
 The reference creates one R8G8B8A8_UNORM sampled image + one descriptor set
-per texture (ref: src/resource/mod.rs:59-136).  TPU-natively every texture is
-a row-major slice of one flat rgba texel arena in HBM; a ``StaticTexture`` is
+per texture (ref: src/resource/mod.rs:59-136).  Here every texture is
+a row-major slice of one flat rgba texel arena in device memory; a ``StaticTexture`` is
 just a slot id + extent — the "descriptor set" that mesh/UI draws carry.
 This is the bindless-by-construction design the reference's TODO.md aspires
 to (ref: TODO.md "use bindless descriptor set").

@@ -2,7 +2,7 @@
 (ref: src/render_objects/mod.rs:5-30).
 
 The reference uses it to spread draw calls over rayon threads for parallel
-command recording.  On TPU the rasterizer itself is data-parallel, so the
+command recording.  Here the rasterizer itself is data-parallel, so the
 partitioner's production use is spreading draws across *devices* in the
 sort-last parallel mode (tyleri_tpu.parallel); the class keeps the exact
 reference semantics (cursor cycles over a fixed group count).

@@ -2,7 +2,7 @@
 
 The reference splits per-frame state into Present/Record/Render resources
 (semaphores / fence+command buffers / UI buffers+cameras, ref:
-render_scene.rs:23-116).  On TPU the semaphore/fence machinery is the
+render_scene.rs:23-116).  Here the semaphore/fence machinery is the
 window's frame ring (tyleri_tpu.window); what remains scene-side is
 ``RenderResources``: the immediate-mode camera list and UI geometry, rebuilt
 every frame and cleared on recycle (ref: render_window.rs:206,

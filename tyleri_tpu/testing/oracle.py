@@ -1,4 +1,4 @@
-"""Numpy oracle rasterizer — ground truth for the TPU kernels.
+"""Numpy oracle rasterizer — ground truth for the JAX kernels.
 
 The reference's output is produced by Vulkan fixed-function rasterization; the
 Rust toolchain and a Vulkan ICD are not available in this environment, so this

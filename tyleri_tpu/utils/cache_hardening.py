@@ -2,8 +2,8 @@
 
 jax's ``LRUCache.put`` writes cache entries with a plain
 ``cache_path.write_bytes(val)`` — NOT atomic.  A concurrent reader (another
-process sharing the cache directory, e.g. a TPU benchmark session next to a
-CPU test run) can observe a torn file, and a process killed mid-write leaves
+process sharing the cache directory, e.g. a benchmark run next to a CPU
+test run) can observe a torn file, and a process killed mid-write leaves
 one behind permanently; deserializing a torn entry crashes in native code
 rather than raising.  This module patches ``put`` to write to a temp file in
 the same directory and ``os.replace`` it into place (atomic on POSIX), which

@@ -7,7 +7,7 @@ return row-major f32 ``(4, 4)`` arrays ``M`` acting on column vectors:
 
 Implemented in NUMPY on purpose: scene assembly runs on the host every frame
 (immediate-mode, like the reference), and eager jnp math on tiny matrices
-costs a device round trip per op — fatal when the accelerator is remote.
+costs a device dispatch per op.
 The jitted frame program does its own matrix math in jnp
 (rendering/forward.py) with HIGHEST precision.
 """

@@ -2,7 +2,7 @@
 (ref: src/render_window/swapchain.rs:16-67).
 
 The reference picks surface format [0], image count = min+1 clamped to max,
-and mandates FIFO (vsync) presentation.  TPU-natively a "swapchain image" is
+and mandates FIFO (vsync) presentation.  Here a "swapchain image" is
 a slot in a rotating ring of frame results; acquire hands out slot indices
 round-robin and the per-slot fence (block at recycle in RenderWindow) gives
 the same image-count-deep CPU/device pipelining the reference gets from
